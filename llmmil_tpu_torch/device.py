@@ -1,0 +1,21 @@
+"""Device choice for the port's entry points."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the CUDA card, and raises when there is none: the CPU
+    is used only when the caller asks for it by name."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run the "
+                "port on the CPU")
+        return torch.device("cuda")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but no CUDA device "
+                           "is available")
+    return device

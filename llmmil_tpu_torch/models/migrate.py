@@ -1,0 +1,154 @@
+"""flax → PyTorch weight migration for the modules the port holds.
+
+``from_flax(variables, cfg)`` turns the JAX package's ``variables`` (numpy
+leaves, e.g. ``jax.tree.map(np.asarray, variables)``) into a ``state_dict``
+that loads, strictly, into ``build_model(cfg)`` of this package.  The rules
+are the inverse of ``llmmil_tpu/models/migrate.py``:
+
+- Dense ``kernel`` (in, out) → Linear ``weight`` (out, in); ``bias`` as is;
+- LayerNorm ``scale``/``bias`` → ``weight``/``bias``; Embed ``embedding`` →
+  ``weight``;
+- raw parameters (``positional_embedding``, ``text_projection``, ``ctx``) as
+  they are, ABMIL's ``V_kernel…w_bias`` onto ``attention_V.0`` /
+  ``attention_U.0`` / ``attention_weights``.
+
+The port names its modules by the reference's ``state_dict`` keys, so the
+result has the key names of a reference checkpoint.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from ..config import Config
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def dense(p: Mapping, pre: str) -> Dict[str, torch.Tensor]:
+    out = {pre + "weight": _t(np.asarray(p["kernel"]).T)}
+    if "bias" in p:
+        out[pre + "bias"] = _t(p["bias"])
+    return out
+
+
+def layer_norm(p: Mapping, pre: str) -> Dict[str, torch.Tensor]:
+    return {pre + "weight": _t(p["scale"]), pre + "bias": _t(p["bias"])}
+
+
+def attention(p: Mapping, pre: str) -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+        out.update(dense(p[name], f"{pre}{name}."))
+    return out
+
+
+def twoway(p: Mapping, pre: str) -> Dict[str, torch.Tensor]:
+    """``TwoWayTransformer`` params → ``<pre>layers.{i}...`` keys."""
+    out: Dict[str, torch.Tensor] = {}
+    depth = sum(1 for k in p if k.startswith("layers_"))
+    for i in range(depth):
+        lp, src = f"{pre}layers.{i}.", p[f"layers_{i}"]
+        for name in ("self_attn", "cross_attn_token_to_image",
+                     "cross_attn_image_to_token"):
+            out.update(attention(src[name], f"{lp}{name}."))
+        out.update(dense(src["mlp"]["lin1"], lp + "mlp.lin1."))
+        out.update(dense(src["mlp"]["lin2"], lp + "mlp.lin2."))
+        for name in ("norm1", "norm2", "norm3", "norm4"):
+            out.update(layer_norm(src[name], f"{lp}{name}."))
+    out.update(attention(p["final_attn_token_to_image"],
+                         pre + "final_attn_token_to_image."))
+    out.update(layer_norm(p["norm_final_attn"], pre + "norm_final_attn."))
+    return out
+
+
+def abmil(p: Mapping, pre: str) -> Dict[str, torch.Tensor]:
+    if "abmil" in p:                      # ABMILv2 wraps an ABMIL
+        p = p["abmil"]
+    return {
+        pre + "attention_V.0.weight": _t(np.asarray(p["V_kernel"]).T),
+        pre + "attention_V.0.bias": _t(p["V_bias"]),
+        pre + "attention_U.0.weight": _t(np.asarray(p["U_kernel"]).T),
+        pre + "attention_U.0.bias": _t(p["U_bias"]),
+        pre + "attention_weights.weight": _t(np.asarray(p["w_kernel"]).T),
+        pre + "attention_weights.bias": _t(p["w_bias"]),
+    }
+
+
+def simple_fcs(p: Mapping, pre: str) -> Dict[str, torch.Tensor]:
+    """simpleFCs_v{1,1d,2,2d}: Linear layers sit at ``fc.0`` / ``fc.2``."""
+    out = dense(p["fc0"], pre + "fc.0.")
+    if "fc1" in p:
+        out.update(dense(p["fc1"], pre + "fc.2."))
+    return out
+
+
+def clip_text(p: Mapping, pre: str) -> Dict[str, torch.Tensor]:
+    """``CLIPTextEncoder`` params → OpenAI CLIP text-side keys."""
+    out = {
+        pre + "token_embedding.weight": _t(p["token_embedding"]["embedding"]),
+        pre + "positional_embedding": _t(p["positional_embedding"]),
+        pre + "text_projection": _t(p["text_projection"]),
+    }
+    out.update(layer_norm(p["ln_final"], pre + "ln_final."))
+    layers = sum(1 for k in p if k.startswith("resblock_"))
+    for i in range(layers):
+        bp, src = f"{pre}transformer.resblocks.{i}.", p[f"resblock_{i}"]
+        out.update(layer_norm(src["ln_1"], bp + "ln_1."))
+        out.update(layer_norm(src["ln_2"], bp + "ln_2."))
+        in_proj = src["attn"]["in_proj"]
+        out[bp + "attn.in_proj_weight"] = _t(np.asarray(in_proj["kernel"]).T)
+        out[bp + "attn.in_proj_bias"] = _t(in_proj["bias"])
+        out.update(dense(src["attn"]["out_proj"], bp + "attn.out_proj."))
+        out.update(dense(src["c_fc"], bp + "mlp.c_fc."))
+        out.update(dense(src["c_proj"], bp + "mlp.c_proj."))
+    return out
+
+
+def coop(p: Mapping, pre: str) -> Dict[str, torch.Tensor]:
+    out = clip_text(p["clip"], pre + "model.")
+    if "ctx" in p:
+        out[pre + "ctx"] = _t(p["ctx"])
+    return out
+
+
+def clinic_extractor(p: Mapping, cfg: Config, pre: str = "clinic_extractor."
+                     ) -> Dict[str, torch.Tensor]:
+    if cfg.model_CI == "CLIP":
+        return coop(p, pre)
+    return simple_fcs(p, pre)
+
+
+def from_flax(variables: Mapping, cfg: Config) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``variables`` for ``cfg`` → this package's
+    ``state_dict``.  Raises ``KeyError`` on a tree that lacks a branch the
+    configuration needs, and ``NotImplementedError`` on a family the port
+    does not hold yet."""
+    p = variables["params"] if "params" in variables else variables
+    sd: Dict[str, torch.Tensor] = {}
+    if cfg.model_family == "concat":
+        if "extractor_pathology" in p:
+            sd.update(abmil(p["extractor_pathology"], "extractor_pathology."))
+        sd.update(dense(p["fc1"], "fc1."))
+        sd.update(dense(p["fc2"], "fc2."))
+        return sd
+    if cfg.model_family != "aggregator":
+        raise NotImplementedError(
+            f"from_flax: model_family={cfg.model_family!r} is not ported")
+    sd.update(clinic_extractor(p["clinic_extractor"], cfg))
+    if "pathology" in cfg.modality:
+        sd.update(dense(p["fc_pathology"], "fc_pathology.0."))
+        sd.update(twoway(p["TwoWayTransformer_Pth"],
+                         "TwoWayTransformer_Pth."))
+        sd.update(dense(p["fc_CI2Pth"], "fc_CI2Pth.0."))
+    else:
+        sd.update(dense(p["fc_CI"], "fc_CI.0."))
+    if cfg.aggregator != "-":
+        sd.update(abmil(p["aggregator"], "aggregator."))
+    sd.update(dense(p["fc"], "fc.1."))          # fc.0 is the Dropout
+    return sd

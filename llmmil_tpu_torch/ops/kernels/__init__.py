@@ -1,0 +1,29 @@
+"""Hand-written CUDA kernels of the port: wrappers and plain versions.
+
+The sources are in ``llmmil_tpu_torch/csrc``; ``build.py`` compiles them at
+first use.
+"""
+
+from .mil_pool import mil_pool, mil_pool_plain
+
+
+def resolve_use_kernel(val, raw_bag: bool) -> bool:
+    """Resolve the ``use_pallas`` config knob to a concrete bool.
+
+    True/False (or their CLI string forms) force either path; ``'auto'``
+    turns the fused kernel on exactly where a RAW bag is pooled (the
+    concat baseline's 768-d rows) and off for the flagship's fused
+    streams.  That is the JAX package's rule with its backend gate left
+    out: whether the kernel launches is decided by where the tensor lies
+    (``mil_pool`` launches it for a CUDA tensor and takes the plain
+    version for a CPU tensor).
+    """
+    if isinstance(val, str):
+        v = val.strip().lower()
+        if v == "auto":
+            return bool(raw_bag)
+        return v in ("1", "true", "yes", "on")
+    return bool(val)
+
+
+__all__ = ["mil_pool", "mil_pool_plain", "resolve_use_kernel"]

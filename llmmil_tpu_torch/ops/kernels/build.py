@@ -1,0 +1,69 @@
+"""Builds the port's CUDA sources into shared libraries and loads them.
+
+Each ``csrc/<name>.cu`` has a plain C interface and includes no PyTorch
+header, so ``nvcc`` takes seconds.  A library is built at first use into
+``ops/kernels/_build/`` (git-ignored), keyed by a hash of its source, and
+loaded with ``ctypes``.  A build that fails raises: nothing gives way to a
+kernel's plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+
+def _find_nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc:
+        return nvcc
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
+                 "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").is_file():
+            return str(Path(root) / "bin" / "nvcc")
+    raise RuntimeError(
+        "nvcc not found (looked on PATH, in $CUDA_HOME, $CUDA_PATH and "
+        "/usr/local/cuda): the port's CUDA kernels cannot be built")
+
+
+def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` is built to, for the source as it stands."""
+    src = CSRC_DIR / f"{name}.cu"
+    tag = hashlib.sha256(src.read_bytes()
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}_{tag}.so"
+
+
+def build_library(name: str, verbose: bool = False) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its library is already built.
+    ``verbose`` adds ``-Xptxas -v`` and prints the compiler's output."""
+    out = library_path(name)
+    if out.is_file():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_find_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
+           "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed on {name}.cu (exit "
+                           f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
+    if verbose:
+        print(proc.stdout + proc.stderr, flush=True)
+    os.replace(tmp, out)       # atomic: a concurrent loader sees all or none
+    return out
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Load the library of ``csrc/<name>.cu``, building it if need be."""
+    return ctypes.CDLL(str(build_library(name)))

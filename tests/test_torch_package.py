@@ -1,0 +1,198 @@
+"""Rules the PyTorch port keeps as a package: it imports nothing of JAX or of
+the JAX package, its build directory is git-ignored, its entry points want a
+CUDA card unless the caller names the CPU, and the configuration and bag
+helpers it copied agree with the JAX package's."""
+
+import dataclasses
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "llmmil_tpu_torch"
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = re.compile(
+    r"^\s*(import\s+(jax|flax|llmmil_tpu)\b(?!_)"
+    r"|from\s+(jax|flax|llmmil_tpu)(\.[\w.]*)?\s+import)", re.M)
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_imports_no_jax(path):
+    assert not FORBIDDEN.search(path.read_text()), path
+
+
+def test_forbidden_pattern_catches_what_it_should():
+    for bad in ("import jax", "import jax.numpy as jnp", "from jax import x",
+                "from flax import linen", "  import flax.linen as nn",
+                "from llmmil_tpu.config import Config", "import llmmil_tpu",
+                "from llmmil_tpu import Config"):
+        assert FORBIDDEN.search(bad), bad
+    for ok in ("from llmmil_tpu_torch import Config",
+               "import llmmil_tpu_torch.ops", "from .config import Config",
+               "# import jax would be wrong here"):
+        assert not FORBIDDEN.search(ok), ok
+
+
+def test_importing_the_port_loads_no_jax():
+    """In a fresh interpreter: every module of the port imported, and neither
+    jax, flax nor the JAX package in ``sys.modules``."""
+    mods = [".".join(p.relative_to(ROOT).with_suffix("").parts)
+            for p in SOURCES if p.name != "__init__.py"
+            and p.parent != ROOT]
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'flax', 'llmmil_tpu', 'triton')]\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)
+
+
+def test_gitignore_lists_the_build_directory():
+    lines = (ROOT / ".gitignore").read_text().split()
+    assert "llmmil_tpu_torch/ops/kernels/_build/" in lines
+    from llmmil_tpu_torch.ops.kernels import build
+    assert build.BUILD_DIR == PORT / "ops" / "kernels" / "_build"
+    assert (build.CSRC_DIR / "mil_pool.cu").is_file()
+
+
+def test_library_path_is_keyed_by_the_source():
+    from llmmil_tpu_torch.ops.kernels import build
+    path = build.library_path("mil_pool")
+    assert path.parent == build.BUILD_DIR
+    assert re.fullmatch(r"libmil_pool_[0-9a-f]{16}\.so", path.name)
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _tiny_cfg():
+    from llmmil_tpu_torch import Config
+    return Config(modality=["pathology"], aggregator="ABMIL",
+                  loss_point="Last", compute_dtype="float32",
+                  twoway_depth=1, bag_buckets=[16])
+
+
+def test_build_model_wants_a_card_unless_cpu_is_named(no_card):
+    from llmmil_tpu_torch.models import build_model
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model(_tiny_cfg())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(_tiny_cfg(), device="cuda")
+    model = build_model(_tiny_cfg(), device="cpu")
+    assert next(model.parameters()).device.type == "cpu"
+    assert not model.training
+
+
+def test_serving_entry_points_want_a_card_unless_cpu_is_named(
+        no_card, tmp_path):
+    from llmmil_tpu_torch.eval import export, serve
+    from llmmil_tpu_torch.models import build_model
+    cfg = _tiny_cfg()
+    blob = export.export_model(
+        cfg, build_model(cfg, device="cpu").state_dict(),
+        [export.make_example_batch(cfg, 1, 16)])
+    path = tmp_path / "a.llmmil"
+    export.save_artifact(str(path), blob)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        export.ServingModel(blob)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        export.load_artifact(str(path))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.serve_artifact(str(path), port=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        export.main(["--out", str(tmp_path / "b.llmmil"), "--modality",
+                     "['pathology']", "--aggregator", "ABMIL"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--artifact", str(path), "--port", "0"])
+    assert export.ServingModel(blob, device="cpu").device.type == "cpu"
+
+
+def test_chip_smoke_fails_without_a_card():
+    """No card: non-zero exit and no result line."""
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_config_copy_agrees_with_the_jax_package():
+    from llmmil_tpu.config import Config as JConfig
+    from llmmil_tpu.config import create_arg_parser as jax_parser
+    from llmmil_tpu_torch.config import Config, create_arg_parser
+    assert [f.name for f in dataclasses.fields(Config)] \
+        == [f.name for f in dataclasses.fields(JConfig)]
+    assert Config().to_dict() == JConfig().to_dict()
+    c = Config(modality=["pathology"], clip_layers=1)
+    assert c.replace(n_ctx=2).n_ctx == 2 and c.n_ctx == 8
+    assert Config.from_dict(dict(c.to_dict(), junk=1)) == c
+    assert c.n_clinical == JConfig().n_clinical == 9
+    assert c.bag_max == JConfig().bag_max and c.ct_hw == JConfig().ct_hw
+    argv = ["--modality", "['pathology']", "--lr", "0.1", "--save_best",
+            "--no-pretrain", "--use_pallas", "true"]
+    assert vars(create_arg_parser().parse_args(argv)) \
+        == vars(jax_parser().parse_args(argv))
+
+
+@pytest.mark.parametrize("version,dim", [("v1", 9), ("v2", 27),
+                                         ("v1d", 513), ("v2d", 513)])
+def test_ci_input_dim(version, dim):
+    from llmmil_tpu_torch import Config
+    assert Config(CI_input_version=version).ci_input_dim == dim
+
+
+@pytest.mark.parametrize("n_rows", [1, 512, 513, 8192, 8193, 16384, 20000])
+def test_bucket_for_agrees_with_the_jax_package(n_rows):
+    from llmmil_tpu.data import bags as jbags
+    from llmmil_tpu_torch.data import bags
+    assert bags.DEFAULT_BUCKETS == jbags.DEFAULT_BUCKETS
+    assert bags.bucket_for(n_rows) == jbags.bucket_for(n_rows)
+    assert bags.bucket_for(n_rows, (16, 32)) \
+        == jbags.bucket_for(n_rows, (16, 32))
+
+
+@pytest.mark.parametrize("n_rows,dtype", [(5, np.float32), (16, np.float32),
+                                          (20, np.float32), (5, np.float64),
+                                          (20, np.float16)])
+def test_pad_bag_agrees_with_the_jax_package(n_rows, dtype):
+    from llmmil_tpu.data import bags as jbags
+    from llmmil_tpu_torch.data import bags
+    feat = np.random.RandomState(0).randn(n_rows, 8).astype(dtype)
+    got, got_mask = bags.pad_bag(feat, 16)
+    want, want_mask = jbags.pad_bag(feat, 16)
+    assert got.shape == (16, 8) and got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got_mask, want_mask)
+
+
+@pytest.mark.parametrize("device,ok", [("cpu", True), ("meta", True),
+                                       (None, False), ("cuda", False),
+                                       ("cuda:0", False)])
+def test_resolve_device(no_card, device, ok):
+    from llmmil_tpu_torch.device import resolve_device
+    if ok:
+        assert resolve_device(device) == torch.device(device)
+    else:
+        with pytest.raises(RuntimeError):
+            resolve_device(device)
+
+
+def test_cuda_tensor_never_takes_the_plain_version():
+    """The wrapper decides by where the tensor lies, nothing else: the
+    source holds no ``try`` and the CUDA branch only launches."""
+    src = (PORT / "ops" / "kernels" / "mil_pool.py").read_text()
+    assert "try:" not in src and "except" not in src
+    body = src.split("def mil_pool(")[1]
+    assert body.index("if x.is_cuda:") < body.index("_MilPoolFunction.apply") \
+        < body.index("return mil_pool_plain")
+    build_src = (PORT / "ops" / "kernels" / "build.py").read_text()
+    assert "except" not in build_src
