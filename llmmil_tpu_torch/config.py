@@ -182,7 +182,7 @@ class Config:
     tp_axis: str = ""                  # inert here
     pp_axis: str = ""                  # inert here
     pp_micro: int = 2                  # inert here
-    ct_shard_axis: str = ""            # inert here
+    ct_shard_axis: str = ""            # non-empty: not ported yet, raises
     xla_options: List[str] = field(    # inert here
         default_factory=lambda: ["xla_tpu_scoped_vmem_limit_kib=32768"])
     moe_experts: int = 0
@@ -192,10 +192,20 @@ class Config:
     moe_group: int = 512
     moe_aux_weight: float = 0.01
     ep_axis: str = ""                  # inert here
-    ct_remat: str = "auto"
-    ct_temporal_mode: str = "dfold"    # inert here
-    ct_conv_backend: str = "xla"       # inert here
-    ct_fwd_lowering: str = "fold"      # inert here
+    ct_remat: str = "auto"             # accepted; inference keeps nothing
+    # Temporal (kD>1) convolutions of the CT trunk: 'conv3d' is a plain 3-D
+    # convolution; 'dfold' / 'dsum' / 'dshift' compute the same thing as
+    # depth-folded 2-D convolutions (models/ct_mc3.py::DepthFoldedConv).
+    ct_temporal_mode: str = "dfold"
+    # 2-D backend of the depth-folded convolutions: 'xla' is stock PyTorch
+    # (F.conv2d, cuDNN on the card), 'pallas' sends the 3×3 stride-1 ones
+    # (MC3 layer1) to the hand-written kernel ops/kernels/conv3x3.py (the
+    # field keeps the JAX package's names).  On a CPU tensor 'pallas' takes
+    # the kernel's plain version; 'pallas_interpret' is refused.
+    ct_conv_backend: str = "xla"
+    # 'conv3d' computes the dfold forward as a plain 3-D convolution where
+    # the JAX package does (cin >= 8, cout < 128, kernel not on 'pallas').
+    ct_fwd_lowering: str = "fold"
     ct_layers: List[int] = field(default_factory=list)
     # TwoWayTransformer block depth (debug knob): 0 = the reference's 2
     twoway_depth: int = 0

@@ -34,14 +34,19 @@ from ..models import build_model
 
 
 def make_example_batch(cfg: Config, batch: int = 1,
-                       bag: Optional[int] = None) -> Dict[str, np.ndarray]:
+                       bag: Optional[int] = None,
+                       ct_depth: int = 160) -> Dict[str, np.ndarray]:
     """Zero-filled numpy batch with the production shapes the config
-    implies (non-CT branches)."""
-    if "CT" in cfg.modality:
-        raise NotImplementedError(
-            "example batches with a CT volume wait for the CT branch "
-            "(ROADMAP.md, Queue 1 item 1)")
+    implies: a CT volume of ``ct_depth`` slices at the in-plane size the
+    spacing names (plus its tumour mask for a ``wMask`` trunk), a bag of
+    ``bag`` rows, the clinical encoding."""
     out: Dict[str, np.ndarray] = {}
+    if "CT" in cfg.modality:
+        hw = cfg.ct_hw
+        out["input_CT"] = np.zeros((batch, ct_depth, hw, hw, 1), np.float32)
+        if "wMask" in cfg.model_CT:
+            out["mask_CT"] = np.zeros((batch, ct_depth, hw, hw, 1),
+                                      np.float32)
     if "pathology" in cfg.modality:
         n = bag or (cfg.bag_buckets[-1] if cfg.bag_buckets else cfg.bag_max)
         out["input_pathology"] = np.zeros((batch, n, 768), np.float32)
@@ -61,6 +66,16 @@ def make_example_batch(cfg: Config, batch: int = 1,
     return out
 
 
+def precomputed_ct_feature_dim(cfg: Config, state_dict) -> Optional[int]:
+    """Width of the precomputed CT features a flagship ``state_dict`` was
+    built for (it holds no ``extractor_CT``), None for one with a trunk."""
+    if "CT" not in cfg.modality or cfg.model_family != "aggregator" \
+            or any(k.startswith("extractor_CT.") for k in state_dict):
+        return None
+    proj = state_dict.get("fc_CT_proj.weight")
+    return 512 if proj is None else int(proj.shape[1])
+
+
 def _entry_key(batch: Mapping[str, Any]) -> str:
     sig = sorted((k, tuple(np.shape(v)), str(np.asarray(v).dtype))
                  for k, v in batch.items())
@@ -73,7 +88,9 @@ def export_model(cfg: Config, state_dict: Mapping[str, torch.Tensor],
     one artifact blob.  The ``state_dict`` is checked against the module
     that ``cfg`` builds (names and shapes), so an artifact that cannot be
     served is refused here and not when it is loaded."""
-    want = build_model(cfg, device="meta").state_dict()
+    ct_feature_dim = precomputed_ct_feature_dim(cfg, state_dict)
+    want = build_model(cfg, device="meta",
+                       ct_feature_dim=ct_feature_dim).state_dict()
     have = {k: tuple(v.shape) for k, v in state_dict.items()}
     if have != {k: tuple(v.shape) for k, v in want.items()}:
         odd = sorted(set(have.items()) ^ {(k, tuple(v.shape))
@@ -85,6 +102,7 @@ def export_model(cfg: Config, state_dict: Mapping[str, torch.Tensor],
     manifest = {"torch_version": torch.__version__,
                 "entries": sigs,
                 "num_classes": cfg.num_classes,
+                "ct_feature_dim": ct_feature_dim,
                 "config": cfg.to_dict()}
     buf = io.BytesIO()
     torch.save({"manifest": json.dumps(manifest),
@@ -109,7 +127,9 @@ class ServingModel:
                          weights_only=True)
         self.manifest = json.loads(raw["manifest"])
         cfg = Config.from_dict(self.manifest["config"])
-        self.model = build_model(cfg, device=self.device)
+        self.model = build_model(
+            cfg, device=self.device,
+            ct_feature_dim=self.manifest.get("ct_feature_dim"))
         self.model.load_state_dict(raw["state_dict"], strict=True)
 
     @property
@@ -144,6 +164,9 @@ def main(argv=None) -> str:
     parser.add_argument("--export_bags", type=str, default="",
                         help="bag lengths to export entries for "
                              "(default: cfg.bag_buckets)")
+    parser.add_argument("--export_ct_depth", type=int, default=0,
+                        help="CT slices per volume of the exported entries "
+                             "(default: cfg.ct_shape[0])")
     parser.add_argument("--state_dict", type=str, default="",
                         help="torch.save'd state_dict to export; without "
                              "it the weights are random, made from --seed")
@@ -158,9 +181,11 @@ def main(argv=None) -> str:
             else (cfg.bag_buckets or [cfg.bag_max]))
     if isinstance(bags, int):
         bags = [bags]
-    batches = ([make_example_batch(cfg, ns.export_batch, bag=b)
-                for b in bags] if "pathology" in cfg.modality else
-               [make_example_batch(cfg, ns.export_batch)])
+    depth = ns.export_ct_depth or cfg.ct_shape[0]
+    batches = ([make_example_batch(cfg, ns.export_batch, bag=b,
+                                   ct_depth=depth) for b in bags]
+               if "pathology" in cfg.modality else
+               [make_example_batch(cfg, ns.export_batch, ct_depth=depth)])
     if ns.state_dict:
         resolve_device(ns.device)
         state_dict = torch.load(ns.state_dict, map_location="cpu",

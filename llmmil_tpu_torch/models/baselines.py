@@ -1,10 +1,11 @@
 """Baseline fusion models — the branches ported so far.
 
 ``AggregatorConcat``: the oldest baseline — per-modality features
-concatenated → fc1 → fc2 → sigmoid.  Its pathology branch pools the RAW
-768-d bag with ABMIL, which is where ``use_pallas='auto'`` turns the fused
-kernel on.  The CT branch, ``AggregatorClip`` and ``AggregatorWMask`` are not
-ported yet.
+concatenated → fc1 → fc2 → sigmoid.  Its CT branch mean-pools the layer4 map
+of an MC3-18 trunk built with the trunk's defaults (native 3-D
+convolutions); its pathology branch pools the RAW 768-d bag with ABMIL,
+which is where ``use_pallas='auto'`` turns the fused kernel on.
+``AggregatorClip`` and ``AggregatorWMask`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -17,8 +18,21 @@ import torch.nn as nn
 from ..config import Config
 from ..ops.kernels import resolve_use_kernel
 from .abmil import ABMIL
-from .aggregator import _CT_ITEM, EMBED_DIM, activation
+from .aggregator import EMBED_DIM, activation
+from .ct_mc3 import ResnetMC3_18
 from .layers import Dense
+
+
+class _CTPooled(nn.Module):
+    """CT volume → pooled 512-d vector (mean over the layer4 map)."""
+
+    def __init__(self, spacing_xy: float = 0.6869,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.trunk = ResnetMC3_18(spacing_xy=spacing_xy, dtype=dtype)
+
+    def forward(self, x):
+        return self.trunk(x).mean(dim=(1, 2, 3))
 
 
 class AggregatorConcat(nn.Module):
@@ -28,9 +42,11 @@ class AggregatorConcat(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.compute_dtype = dtype
-        if "CT" in cfg.modality:
-            raise NotImplementedError(_CT_ITEM)
         in_dim = 0
+        self.has_ct = "CT" in cfg.modality
+        if self.has_ct:
+            self.extractor_CT = _CTPooled(cfg.spacing[0], dtype)
+            in_dim += EMBED_DIM
         self.has_pth = "pathology" in cfg.modality
         if self.has_pth:
             self.extractor_pathology = ABMIL(
@@ -48,6 +64,8 @@ class AggregatorConcat(nn.Module):
 
     def forward(self, batch: Dict[str, Any], return_attn: bool = False):
         parts = []
+        if self.has_ct:
+            parts.append(self.extractor_CT(batch["input_CT"]))
         if self.has_pth:
             pooled, _ = self.extractor_pathology(
                 batch["input_pathology"], batch.get("mask_pathology"))

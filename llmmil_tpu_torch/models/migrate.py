@@ -10,7 +10,12 @@ are the inverse of ``llmmil_tpu/models/migrate.py``:
   ``weight``;
 - raw parameters (``positional_embedding``, ``text_projection``, ``ctx``) as
   they are, ABMIL's ``V_kernel…w_bias`` onto ``attention_V.0`` /
-  ``attention_U.0`` / ``attention_weights``.
+  ``attention_U.0`` / ``attention_weights``;
+- Conv ``kernel`` DHWIO → ``weight`` OIDHW; the 4-D HWIO kernel of a
+  depth-independent (1,kH,kW) convolution gains its kD = 1 axis;
+- BatchNorm ``params`` (``scale``, ``bias``) and ``batch_stats`` (``mean``,
+  ``var``) → ``weight``, ``bias``, ``running_mean``, ``running_var``;
+  ``num_batches_tracked`` is set to 0.
 
 The port names its modules by the reference's ``state_dict`` keys, so the
 result has the key names of a reference checkpoint.
@@ -64,6 +69,45 @@ def twoway(p: Mapping, pre: str) -> Dict[str, torch.Tensor]:
     out.update(attention(p["final_attn_token_to_image"],
                          pre + "final_attn_token_to_image."))
     out.update(layer_norm(p["norm_final_attn"], pre + "norm_final_attn."))
+    return out
+
+
+def conv(p: Mapping, pre: str) -> Dict[str, torch.Tensor]:
+    k = np.asarray(p["kernel"])
+    if k.ndim == 4:                       # (kH, kW, I, O): a (1,kH,kW) conv
+        k = k[None]
+    out = {pre + "weight": _t(k.transpose(4, 3, 0, 1, 2))}
+    if "bias" in p:
+        out[pre + "bias"] = _t(p["bias"])
+    return out
+
+
+def batch_norm(p: Mapping, stats: Mapping, pre: str
+               ) -> Dict[str, torch.Tensor]:
+    return {pre + "weight": _t(p["scale"]), pre + "bias": _t(p["bias"]),
+            pre + "running_mean": _t(stats["mean"]),
+            pre + "running_var": _t(stats["var"]),
+            pre + "num_batches_tracked": torch.tensor(0, dtype=torch.long)}
+
+
+def conv_bn(p: Mapping, stats: Mapping, pre: str) -> Dict[str, torch.Tensor]:
+    """``_ConvBN`` → torchvision's ``<pre>0`` (conv) / ``<pre>1`` (BN)."""
+    return {**conv(p["conv"], pre + "0."),
+            **batch_norm(p["bn"], stats["bn"], pre + "1.")}
+
+
+def resnet_mc3(p: Mapping, stats: Mapping, pre: str
+               ) -> Dict[str, torch.Tensor]:
+    """``ResnetMC3_18`` → ``<pre>downsampling.*`` and torchvision ``mc3_18``
+    keys under ``<pre>model.``."""
+    out = conv(p["downsampling"], pre + "downsampling.")
+    trunk, tstats, pre = p["trunk"], stats["trunk"], pre + "model."
+    out.update(conv_bn(trunk["stem"], tstats["stem"], pre + "stem."))
+    for name in sorted(k for k in trunk if k.startswith("layer")):
+        stage, block = name.split("_")
+        for part in trunk[name]:          # conv1, conv2, downsample
+            out.update(conv_bn(trunk[name][part], tstats[name][part],
+                               f"{pre}{stage}.{block}.{part}."))
     return out
 
 
@@ -124,14 +168,30 @@ def clinic_extractor(p: Mapping, cfg: Config, pre: str = "clinic_extractor."
     return simple_fcs(p, pre)
 
 
+def _batch_stats(variables: Mapping, branch: str) -> Mapping:
+    if "batch_stats" not in variables:
+        raise KeyError(
+            "from_flax: a configuration with 'CT' in its modality needs "
+            "variables['batch_stats'] (the trunk's BatchNorm running "
+            "statistics) beside variables['params']")
+    return variables["batch_stats"][branch]
+
+
 def from_flax(variables: Mapping, cfg: Config) -> Dict[str, torch.Tensor]:
     """The JAX package's ``variables`` for ``cfg`` → this package's
-    ``state_dict``.  Raises ``KeyError`` on a tree that lacks a branch the
-    configuration needs, and ``NotImplementedError`` on a family the port
-    does not hold yet."""
+    ``state_dict``.  With ``'CT'`` in the modality ``variables`` must hold
+    ``batch_stats`` beside ``params``.  Raises ``KeyError`` on a tree that
+    lacks a branch the configuration needs, and ``NotImplementedError`` on
+    a family the port does not hold yet."""
     p = variables["params"] if "params" in variables else variables
+    has_ct, has_pth = "CT" in cfg.modality, "pathology" in cfg.modality
     sd: Dict[str, torch.Tensor] = {}
     if cfg.model_family == "concat":
+        if has_ct:
+            sd.update(resnet_mc3(
+                p["extractor_CT"]["trunk"],
+                _batch_stats(variables, "extractor_CT")["trunk"],
+                "extractor_CT.trunk."))
         if "extractor_pathology" in p:
             sd.update(abmil(p["extractor_pathology"], "extractor_pathology."))
         sd.update(dense(p["fc1"], "fc1."))
@@ -140,15 +200,31 @@ def from_flax(variables: Mapping, cfg: Config) -> Dict[str, torch.Tensor]:
     if cfg.model_family != "aggregator":
         raise NotImplementedError(
             f"from_flax: model_family={cfg.model_family!r} is not ported")
-    sd.update(clinic_extractor(p["clinic_extractor"], cfg))
-    if "pathology" in cfg.modality:
-        sd.update(dense(p["fc_pathology"], "fc_pathology.0."))
-        sd.update(twoway(p["TwoWayTransformer_Pth"],
-                         "TwoWayTransformer_Pth."))
-        sd.update(dense(p["fc_CI2Pth"], "fc_CI2Pth.0."))
+    if cfg.separate_CI_encoders and has_ct and has_pth:
+        for name in ("clinic_extractor_CT", "clinic_extractor_Pth"):
+            sd.update(clinic_extractor(p[name], cfg, name + "."))
     else:
+        sd.update(clinic_extractor(p["clinic_extractor"], cfg))
+    if has_ct:
+        if "extractor_CT" in p:           # absent with precomputed features
+            sd.update(resnet_mc3(p["extractor_CT"],
+                                 _batch_stats(variables, "extractor_CT"),
+                                 "extractor_CT."))
+        if "fc_CT_proj" in p:
+            sd.update(dense(p["fc_CT_proj"], "fc_CT_proj."))
+        sd.update(dense(p["fc_CI2CT"], "fc_CI2CT.0."))
+    if has_pth:
+        sd.update(dense(p["fc_pathology"], "fc_pathology.0."))
+        sd.update(dense(p["fc_CI2Pth"], "fc_CI2Pth.0."))
+    for name in ("TwoWayTransformer_Both", "TwoWayTransformer_CT",
+                 "TwoWayTransformer_Pth"):
+        if name in p:
+            sd.update(twoway(p[name], name + "."))
+    if not has_ct and not has_pth:
         sd.update(dense(p["fc_CI"], "fc_CI.0."))
     if cfg.aggregator != "-":
         sd.update(abmil(p["aggregator"], "aggregator."))
-    sd.update(dense(p["fc"], "fc.1."))          # fc.0 is the Dropout
+    for name in ("fc", "fc_CT", "fc_Pth"):    # <name>.0 is the Dropout
+        if name in p:
+            sd.update(dense(p[name], name + ".1."))
     return sd

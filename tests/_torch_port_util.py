@@ -22,6 +22,30 @@ def numpy_variables(module, *args, seed=0, scale=0.1, **kwargs):
         lambda s: (rs.randn(*s.shape) * scale).astype(np.float32), shapes)
 
 
+def ct_variables(variables, seed=1):
+    """``numpy_variables`` of a module that holds a CT trunk, made fit for a
+    17-layer-deep comparison: BatchNorm variances positive, BatchNorm scales
+    around 1 and conv kernels He-scaled, so that the layer4 map neither
+    vanishes nor overflows and a wrong weight layout shows."""
+    def fix(node, in_bn=False):
+        out = {}
+        for key, leaf in node.items():
+            if isinstance(leaf, dict):
+                out[key] = fix(leaf, in_bn or key == "bn")
+            elif key == "var":
+                out[key] = np.abs(leaf) + 0.5
+            elif key == "scale" and in_bn:
+                out[key] = 1.0 + leaf
+            elif key == "kernel" and leaf.ndim >= 4:
+                fan_in = int(np.prod(leaf.shape[:-1]))
+                out[key] = (leaf * 10.0 * np.sqrt(2.0 / fan_in)).astype(
+                    np.float32)
+            else:
+                out[key] = leaf
+        return out
+    return fix(to_numpy_tree(variables))
+
+
 def t(a):
     """numpy → torch tensor (CPU), dtype kept."""
     return torch.from_numpy(np.ascontiguousarray(a))

@@ -60,6 +60,7 @@ def test_gitignore_lists_the_build_directory():
     from llmmil_tpu_torch.ops.kernels import build
     assert build.BUILD_DIR == PORT / "ops" / "kernels" / "_build"
     assert (build.CSRC_DIR / "mil_pool.cu").is_file()
+    assert (build.CSRC_DIR / "conv3x3.cu").is_file()
 
 
 def test_library_path_is_keyed_by_the_source():
@@ -138,9 +139,38 @@ def test_config_copy_agrees_with_the_jax_package():
     assert c.n_clinical == JConfig().n_clinical == 9
     assert c.bag_max == JConfig().bag_max and c.ct_hw == JConfig().ct_hw
     argv = ["--modality", "['pathology']", "--lr", "0.1", "--save_best",
-            "--no-pretrain", "--use_pallas", "true"]
+            "--no-pretrain", "--use_pallas", "true", "--ct_temporal_mode",
+            "dshift", "--ct_conv_backend", "pallas", "--ct_fwd_lowering",
+            "conv3d", "--ct_layers", "[1,1,1,1]"]
     assert vars(create_arg_parser().parse_args(argv)) \
         == vars(jax_parser().parse_args(argv))
+    # the three CT lowering fields mean the same in both packages
+    for name, values in (("ct_temporal_mode", ("conv3d", "dfold", "dsum",
+                                               "dshift")),
+                         ("ct_conv_backend", ("xla", "pallas")),
+                         ("ct_fwd_lowering", ("fold", "conv3d"))):
+        assert getattr(Config(), name) == getattr(JConfig(), name) \
+            == values[1 if name == "ct_temporal_mode" else 0]
+        for v in values:
+            assert Config(**{name: v}).to_dict() == JConfig(**{name: v}
+                                                            ).to_dict()
+
+
+@pytest.mark.parametrize("field,bad", [
+    ("ct_temporal_mode", "nope"), ("ct_conv_backend", "nope"),
+    ("ct_conv_backend", "pallas_interpret"), ("ct_fwd_lowering", "nope")])
+def test_bad_ct_field_is_a_value_error_that_names_it(field, bad):
+    """The bad-config probe for the fields that steer the CT trunk; every
+    value the JAX package documents builds."""
+    from llmmil_tpu_torch import Config
+    from llmmil_tpu_torch.models import build_model
+    base = dict(modality=["CT"], aggregator="ABMIL", twoway_depth=1,
+                ct_layers=[1, 1, 1, 1], clip_layers=1)
+    with pytest.raises(ValueError, match=field):
+        build_model(Config(**dict(base, **{field: bad})), device="cpu")
+    good = {"ct_temporal_mode": "dsum", "ct_conv_backend": "pallas",
+            "ct_fwd_lowering": "conv3d"}[field]
+    assert build_model(Config(**dict(base, **{field: good})), device="meta")
 
 
 @pytest.mark.parametrize("version,dim", [("v1", 9), ("v2", 27),

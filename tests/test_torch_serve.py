@@ -231,3 +231,122 @@ def test_make_example_batch_matches_jax_package(kw, keys):
         np.testing.assert_array_equal(v, np.asarray(want[k]))
     for k, (shape, dtype) in keys.items():
         assert got[k].shape == shape and str(got[k].dtype) == dtype
+
+
+# ------------------------------------------------------------- the CT path --
+
+def _ct_cfg(**kw):
+    """Tri-modal flagship at a tiny size: 32 x 32 slices, one block a stage,
+    a one-layer CLIP text tower."""
+    return Config(**dict(dict(
+        modality=["CT", "pathology"], model_CT="resnetMC3_18",
+        model_pathology="ABMIL", aggregator="ABMIL", model_CI="CLIP",
+        CI_input_version="text", CI_prompt_version="devided",
+        loss_point="CT-Pth-Last", compute_dtype="float32", n_ctx=4,
+        spacing=[2.0, 2.0, 2.5], ct_hw_override=32, ct_layers=[1, 1, 1, 1],
+        ct_conv_backend="pallas", use_pallas=True, twoway_depth=1,
+        clip_vocab=128, clip_context=16, clip_width=32, clip_heads=4,
+        clip_layers=1, clip_embed=32, bag_buckets=[16]), **kw))
+
+
+def _ct_request(cfg, depth=8, seed=0):
+    rs = np.random.RandomState(seed)
+    ex = make_example_batch(cfg, 1, bag=16, ct_depth=depth)
+    ex["input_CT"] = rs.rand(*ex["input_CT"].shape).astype(np.float32)
+    if "input_pathology" in ex:
+        ex["input_pathology"] = rs.randn(1, 16, 768).astype(np.float32)
+        ex["mask_pathology"] = np.arange(16)[None] < 11
+    toks = rs.randint(1, 126, ex["input_CI"].shape).astype(np.int32)
+    toks[..., -1] = 127
+    ex["input_CI"] = toks
+    return ex
+
+
+def test_served_ct_artifact_answers_over_http():
+    cfg = _ct_cfg()
+    model = build_model(cfg, device="cpu", seed=2)
+    blob = export_model(cfg, model.state_dict(),
+                        [make_example_batch(cfg, 1, bag=16, ct_depth=8)])
+    sm = ServingModel(blob, device="cpu")
+    assert sm.manifest["ct_feature_dim"] is None
+    assert any("input_CT:1x8x32x32x1:float32" in k for k in sm.signatures)
+    ex = _ct_request(cfg)
+    with torch.no_grad():
+        want = model({k: torch.from_numpy(v).long() if v.dtype == np.int32
+                      else torch.from_numpy(v) for k, v in ex.items()})
+    np.testing.assert_array_equal(sm.call(ex), want["probs"].numpy())
+    with InferenceServer(sm) as srv:
+        base = f"http://127.0.0.1:{srv.port}"
+        assert srv._max_body >= 4 * ex["input_CT"].nbytes
+        for seed in (0, 1):
+            req = _ct_request(cfg, seed=seed)
+            code, out = _post(f"{base}/predict", req)
+            assert code == 200 and out["device_ms"] >= 0
+            np.testing.assert_array_equal(
+                np.asarray(out["probs"], np.float32), sm.call(req))
+        with pytest.raises(urllib.error.HTTPError) as err:   # another depth
+            _post(f"{base}/predict", _ct_request(cfg, depth=4))
+        assert err.value.code == 400
+        assert "available" in json.load(err.value)["error"]
+
+
+def test_export_cli_with_a_ct_configuration(tmp_path):
+    path = str(tmp_path / "ct.llmmil")
+    export_mod.main([
+        "--out", path, "--device", "cpu", "--modality", "['CT']",
+        "--model_CT", "resnetMC3_18_wMask", "--wmask_family", "twoway",
+        "--aggregator", "ABMIL", "--compute_dtype", "float32",
+        "--spacing", "[2.0, 2.0, 2.5]", "--ct_hw_override", "16",
+        "--ct_layers", "[1,1,1,1]", "--ct_temporal_mode", "dshift",
+        "--ct_conv_backend", "pallas", "--twoway_depth", "1",
+        "--learnablePrompt", "0", "--export_ct_depth", "4", "--seed", "3"])
+    loaded = load_artifact(path, device="cpu")
+    (key,) = loaded.signatures
+    assert "input_CT:1x4x16x16x1:float32" in key \
+        and "mask_CT:1x4x16x16x1:float32" in key
+    cfg = Config.from_dict(loaded.manifest["config"])
+    assert cfg.ct_temporal_mode == "dshift" and cfg.ct_conv_backend == "pallas"
+    ex = make_example_batch(cfg, 1, ct_depth=4)
+    ex["input_CT"] += 0.5
+    probs = loaded.call(ex)
+    assert probs.shape == (1, 2) and np.isfinite(probs).all()
+
+
+def test_artifact_of_a_model_for_precomputed_ct_features():
+    """No trunk in the state_dict: the artifact records the feature width
+    and ``ServingModel`` rebuilds the same module."""
+    cfg = _ct_cfg(modality=["CT"], loss_point="Last")
+    model = build_model(cfg, device="cpu", ct_feature_dim=48)
+    ex = _ct_request(cfg)
+    del ex["input_CT"]
+    ex["ct_features"] = np.random.RandomState(1).randn(1, 5, 48).astype(
+        np.float32)
+    sm = ServingModel(export_model(cfg, model.state_dict(), [ex]),
+                      device="cpu")
+    assert sm.manifest["ct_feature_dim"] == 48
+    assert set(sm.model.state_dict()) == set(model.state_dict())
+    assert np.isfinite(sm.call(ex)).all()
+
+
+@pytest.mark.parametrize("kw,keys", [
+    (dict(), {"input_CT": (2, 3, 512, 512, 1),
+              "input_pathology": (2, 16, 768)}),
+    (dict(modality=["CT"], spacing=[2.0, 2.0, 2.5]),
+     {"input_CT": (2, 3, 224, 224, 1)}),
+    (dict(modality=["CT"], model_CT="resnetMC3_18_wMask"),
+     {"input_CT": (2, 3, 512, 512, 1), "mask_CT": (2, 3, 512, 512, 1)}),
+])
+def test_make_example_batch_with_ct_matches_jax_package(kw, keys):
+    from llmmil_tpu.config import Config as JConfig
+    from llmmil_tpu.eval.export import make_example_batch as jax_example
+    cfg = _ct_cfg(**dict(dict(ct_hw_override=0, spacing=[0.6869, 0.6869, 3.0]),
+                         **kw))
+    got = make_example_batch(cfg, 2, bag=16, ct_depth=3)
+    want = jax_example(JConfig(**cfg.to_dict()), 2, bag=16, ct_depth=3)
+    assert set(got) == set(want)
+    for k, v in got.items():
+        assert v.shape == want[k].shape and str(v.dtype) == str(want[k].dtype)
+        np.testing.assert_array_equal(v, np.asarray(want[k]))
+    for k, shape in keys.items():
+        assert got[k].shape == shape and got[k].dtype == np.float32
+    assert make_example_batch(cfg, 1, bag=16)["input_CT"].shape[1] == 160
