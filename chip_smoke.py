@@ -18,14 +18,27 @@ once.  The weights are random, made from a seed.  Phases:
   model-ct  the tri-modal and the CT-only flagship on one 160 x 512 x 512
             volume: conv3x3 kernel route against the stock route, same type
   serve-ct  the tri-modal flagship exported and served over HTTP
+  kernels-bwd  conv3x3's input and weight gradients against their plain
+            versions (the weight gradient against an fp64 sum), run to run
+            bits of the weight gradient, and cuDNN's backward for scale
+  train     fit() on the synthetic full-width cohort (one 160 x 512 x 512
+            volume and one 8192-bucket bag a patient, batch 2), one epoch
+            and its validation; launches a step; a mid-epoch checkpoint
+            resumed gives the same next step bit for bit; one step at batch
+            1 on the conv3x3 route against the stock route, fp32 and bf16,
+            and one layer1 convolution of a step on each route held against
+            the plain versions on its own operands (dk against an fp64 sum)
   last      one JSON line for the kernels, the card, {"ok": true, ...}
 """
 
 import concurrent.futures
 import io
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import urllib.error
 import urllib.request
@@ -39,9 +52,17 @@ from llmmil_tpu_torch.data.bags import bucket_for, pad_bag
 from llmmil_tpu_torch.eval.export import (ServingModel, export_model,
                                           make_example_batch)
 from llmmil_tpu_torch.eval.serve import InferenceServer
+from llmmil_tpu_torch.data import BatchLoader, SyntheticCohort
 from llmmil_tpu_torch.models import build_model
-from llmmil_tpu_torch.ops.kernels import (build, conv3x3, conv3x3_plain,
+from llmmil_tpu_torch.models.abmil import ABMIL
+from llmmil_tpu_torch.ops.kernels import (build, conv3x3, conv3x3_dgrad,
+                                          conv3x3_dgrad_plain, conv3x3_plain,
+                                          conv3x3_wgrad, conv3x3_wgrad_plain,
                                           mil_pool, mil_pool_plain)
+from llmmil_tpu_torch.parallel import ShardedEpochSampler, place_batch
+from llmmil_tpu_torch.train import checkpoint as ckpt
+from llmmil_tpu_torch.train import create_train_state, make_train_step
+from llmmil_tpu_torch.train.loop import fit
 
 SEED = 0
 GATE_D = 192
@@ -106,6 +127,7 @@ KERNEL_SHAPES = [            # (B, N, L, dtype); N+1 / N+10: the flagship
 HEADLINE_SHAPE = KERNEL_SHAPES[0]
 CONV_SHAPES = [              # (N, H, W, C, F, dtype)
     (160, 128, 128, 192, 64, torch.bfloat16),   # MC3 layer1, dfold: the path
+    (320, 128, 128, 192, 64, torch.bfloat16),   # the same at fit()'s batch 2
     (16, 128, 128, 192, 64, torch.float32),     # the same in fp32, 16 slices
     (16, 128, 128, 64, 192, torch.bfloat16),    # dshift
     (16, 128, 128, 64, 64, torch.bfloat16),     # dsum
@@ -114,6 +136,64 @@ CONV_SHAPES = [              # (N, H, W, C, F, dtype)
     (3, 17, 13, 24, 40, torch.float32),
 ]
 CONV_HEADLINE = CONV_SHAPES[0]
+# conv3x3's backward: x (N, H, W, C) and g (N, H, W, F).  The input gradient
+# is the forward kernel on g with the rotated kernel (F -> C), held to
+# CONV_TOL.  The weight gradient sums N·H·W products per value (2.6M at the
+# path) in fp32, in another order than any reference; it is held against an
+# fp64 sum of the same (type-rounded) operands.  Each block sums up to ~65k
+# exact products sequentially and the partials are added in a fixed order,
+# so the fp32 error stays near 2^-24 · sqrt(terms) of the magnitudes summed:
+# <= 1e-4 * max|dw| for both types.
+BWD_SHAPES = [              # (N, H, W, C, F, dtype)
+    (160, 128, 128, 192, 64, torch.bfloat16),   # MC3 layer1, dfold: the path
+    (320, 128, 128, 192, 64, torch.bfloat16),   # at fit()'s batch 2: another
+    #                                             plan of pixel ranges
+    (16, 128, 128, 192, 64, torch.float32),     # the same in fp32, 16 slices
+    (2, 33, 31, 20, 70, torch.bfloat16),        # ragged everywhere
+    (2, 10, 16, 8, 4, torch.float32),
+    (3, 17, 13, 24, 40, torch.float32),
+]
+WGRAD_TOL = 1e-4
+# One train step at batch 1, conv3x3 route against the stock route (cuDNN
+# forward and backward), same weights, same batch, dropout off, relative to
+# the largest |value| of each compared tensor:
+#  fp32 (TF32 off): the routes differ in the order of layer1's sums (~1e-6
+#    relative), which the backward carries through 13 convolutions and the
+#    batch statistics of every BatchNorm -> loss <= 1e-5, the heads'
+#    gradients <= 1e-3.
+#  bf16: layer1's outputs and input gradients differ by one bf16 step in a
+#    fraction of their values; the forward rounds 16 more times and the
+#    backward as often -> loss <= 3e-2 absolute (CT_TOL's heads); the heads'
+#    gradients pool those differences -> <= 6e-2 (CT_TOL's map).
+# Layer1's weight gradients are read, not held, across the routes: they are
+# sums of 2.6M products x·dy that cancel (x leaves a ReLU, dy leaves
+# BatchNorm's backward with zero mean a channel; Σ|x·dy| is ~165 times the
+# largest |dk| at this batch), so the small differences between the two
+# routes' x and dy come out amplified (~6e-3 of the max in fp32, ~27 % in
+# bf16).  Instead, in a further step on each route, one layer1
+# convolution keeps its operands x, k and dy and its results y, dx and dk,
+# and each is held against the plain version on those same tensors: y and
+# dx (conv3x3 route) to CONV_TOL, and dk (both routes) element by element to
+# a sum in fp64:
+#   |dk - dk64| <= r·|dk64| + STEP_WGRAD_TOL·S,   S = Σ|x|·|dy| (fp64)
+# r is the rounding of dk to the kernel's type (0 in fp32; 2^-7, twice
+# bf16's 2^-8, in bf16).  The kernel's fp32 sums are chains of additions:
+# a block's pixel range (<= 16384 pixels: one FMA a pixel in fp32, one
+# m16n8k16 step per 16 pixels in bf16), then the <= ~350 partials.  Their
+# rounding grows like 2^-24·sqrt(additions) times the magnitudes summed, at
+# most 2^-24·sqrt(16.7k)·S ~ 7.7e-6·S: 2e-5·S leaves a factor 2.6.  cuDNN's
+# order is its own; the same bound is asked of it.
+STEP_TOL = {"float32": {"loss": 1e-5, "head_rel": 1e-3},
+            "bfloat16": {"loss": 3e-2, "head_rel": 6e-2}}
+STEP_WGRAD_TOL = 2e-5
+STEP_WGRAD_ROUND = {"float32": 0.0, "bfloat16": 2.0 ** -7}
+WATCHED_CONV = "extractor_CT.model.layer1.0.conv1.0"    # a DepthFoldedConv
+TRAIN_BATCH = 2             # ct_remat auto -> 'early' (stages 1 and 2)
+TRAIN_PATIENTS = 3          # a hospital: 9 train-hospital patients, 6 train
+BAG_RANGE = (5200, 8193)    # rows before instance dropout; 8192 bucket
+LAYER1_GRADS = tuple(f"extractor_CT.model.layer1.{b}.conv{c}.0.weight"
+                     for b in (0, 1) for c in (1, 2))
+HEAD_GRADS = ("fc.1.weight", "fc_CT.1.weight", "fc_Pth.1.weight")
 MODEL_BATCHES = ((8, 8192), (1, 16384))           # (batch, bag bucket)
 SERVE_SIGNATURES = ((1, 8192), (1, 16384), (8, 8192))
 CT_DEPTH, CT_BAG = 160, 8192        # one volume of 160 x 512 x 512, one bag
@@ -296,6 +376,105 @@ def conv_kernels_phase():
         del x, y, ref
         torch.cuda.empty_cache()
     return shapes
+
+
+def conv_bwd_bound_ms(shape, which):
+    """Least time for one gradient: its two inputs read once, its output
+    written once, against the forward's 2·N·H·W·9·C·F operations."""
+    n, h, w, c, f, dtype = shape
+    item = torch.empty((), dtype=dtype).element_size()
+    if which == "dgrad":        # g and k in, dx out, all in the type
+        nbytes = (n * h * w * (c + f) + 9 * c * f) * item
+    else:                       # x and g in, dw out in fp32
+        nbytes = n * h * w * (c + f) * item + 9 * c * f * 4
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_flops = 2 * n * h * w * 9 * c * f / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_flops), "bytes" if t_bytes >= t_flops else "operations"
+
+
+def conv_bwd_library(x, g, kt, which):
+    """The one PyTorch call per gradient (cuDNN backward-data and
+    backward-filter on channels_last views).  Timed here, used nowhere in
+    the port."""
+    xc, gc = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+    if which == "dgrad":
+        return torch.nn.grad.conv2d_input(xc.shape, kt.permute(3, 2, 0, 1),
+                                          gc, padding=1)
+    return torch.nn.grad.conv2d_weight(xc, (kt.shape[3], kt.shape[2], 3, 3),
+                                       gc, padding=1)
+
+
+def conv_bwd_phase():
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 5)
+    rows = []
+    for shape in BWD_SHAPES:
+        n, h, w, c, f, dtype = shape
+        name = f"{n}x{h}x{w}x{c}->{f} {str(dtype).split('.')[-1]}"
+        x = torch.randn(n, h, w, c, generator=gen, device=DEV).to(dtype)
+        g = torch.randn(n, h, w, f, generator=gen, device=DEV).to(dtype)
+        # the kernel the trunk hands in: cast to the compute type
+        kt = (torch.randn(3, 3, c, f, generator=gen, device=DEV)
+              * (9 * c) ** -0.5).to(dtype)
+
+        dx = conv3x3_dgrad(g, kt)
+        torch.cuda.synchronize()
+        ref = conv3x3_dgrad_plain(g, kt)
+        check(dx.shape == (n, h, w, c) and dx.dtype == dtype
+              and bool(torch.isfinite(dx).all()),
+              f"conv3x3_dgrad: wrong or non-finite output at {name}")
+        top = float(ref.float().abs().max())
+        d_err = float((dx.float() - ref.float()).abs().max())
+        d_tol = CONV_TOL[dtype] * top
+        check(d_err <= d_tol, f"conv3x3_dgrad disagrees with its plain "
+              f"version at {name}: {d_err} > {d_tol}")
+        lib = conv_bwd_library(x, g, kt, "dgrad").permute(0, 2, 3, 1)
+        d_lib_err = float((lib.float() - ref.float()).abs().max())
+        del lib, ref
+
+        dw = conv3x3_wgrad(x, g)
+        again = conv3x3_wgrad(x, g)
+        torch.cuda.synchronize()
+        same_bits = torch.equal(dw, again)
+        check(same_bits, f"conv3x3_wgrad: two runs differ at {name}")
+        ref64 = conv3x3_wgrad_plain(x, g, torch.float64)
+        check(dw.shape == (3, 3, c, f) and dw.dtype == torch.float32
+              and bool(torch.isfinite(dw).all()),
+              f"conv3x3_wgrad: wrong or non-finite output at {name}")
+        w_top = float(ref64.abs().max())
+        w_err = float((dw.double() - ref64).abs().max())
+        w_tol = WGRAD_TOL * w_top
+        check(w_err <= w_tol, f"conv3x3_wgrad disagrees with the fp64 sum "
+              f"at {name}: {w_err} > {w_tol}")
+        lib = conv_bwd_library(x, g, kt, "wgrad").permute(2, 3, 1, 0)
+        w_lib_err = float((lib.double() - ref64).abs().max())
+        plain32 = conv3x3_wgrad_plain(x, g)
+        w_plain_err = float((plain32.double() - ref64).abs().max())
+        del lib, again, ref64, plain32
+
+        big = n * h * w * c * f >= 1 << 28
+        it, pit = (10, 2) if big else (50, 10)
+        row = {"shape": name,
+               "dgrad_err": d_err, "dgrad_tol": d_tol,
+               "dgrad_library_err": d_lib_err,
+               "wgrad_err": w_err, "wgrad_tol": w_tol,
+               "wgrad_library_err": w_lib_err,
+               "wgrad_plain_fp32_err": w_plain_err,
+               "wgrad_same_bits": same_bits}
+        for which, run, plain in (
+                ("dgrad", lambda: conv3x3_dgrad(g, kt),
+                 lambda: conv3x3_dgrad_plain(g, kt)),
+                ("wgrad", lambda: conv3x3_wgrad(x, g),
+                 lambda: conv3x3_wgrad_plain(x, g))):
+            row[f"{which}_ms"] = time_ms(run, it)
+            row[f"{which}_library_ms"] = time_ms(
+                lambda: conv_bwd_library(x, g, kt, which), it)
+            row[f"{which}_plain_ms"] = time_ms(plain, pit, warmup=1)
+            bound, by = conv_bwd_bound_ms(shape, which)
+            row[f"{which}_bound_ms"], row[f"{which}_bound_by"] = bound, by
+        rows.append(row)
+        del x, g, dx, dw
+        torch.cuda.empty_cache()
+    return rows
 
 
 # ------------------------------------------------------------------ model --
@@ -648,6 +827,338 @@ def serve_phase(cfg, model):
     return lines
 
 
+# ------------------------------------------------------------------ train --
+
+def counts():
+    return {"conv3x3_fwd": conv3x3.launches,
+            "conv3x3_dgrad": conv3x3_dgrad.launches,
+            "conv3x3_wgrad": conv3x3_wgrad.launches,
+            "mil_pool_fwd": mil_pool.launches}
+
+
+def zero_counts():
+    conv3x3.launches = conv3x3_dgrad.launches = 0
+    conv3x3_wgrad.launches = mil_pool.launches = 0
+
+
+def train_cfg(dtype="bfloat16", backend="pallas", batch=TRAIN_BATCH,
+              save_dir="results"):
+    return ct_cfg(["CT", "pathology"], dtype, backend).replace(
+        batch_size=batch, n_epochs=1, log_every=1, num_workers=4,
+        save_dir=save_dir, ct_remat="auto")
+
+
+def dropout_off(model):
+    """Training mode with every dropout off (BatchNorm still on its batch
+    statistics): the two routes then see the same function."""
+    model.train()
+    for m in model.modules():
+        if isinstance(m, (torch.nn.Dropout, ABMIL)):
+            m.eval()
+
+
+def snapshot(model, names):
+    sd = model.state_dict()
+    return {k: sd[k].detach().clone() for k in names}
+
+
+def step_launches(remat):
+    """Kernel launches one train step implies: layer1's four convolutions
+    run forward once, and again in the backward when stage 1 is
+    rematerialised; each has an input and a weight gradient; one mil_pool a
+    head (its backward recomputes through the plain version)."""
+    fwd = 8 if remat in ("all", "early") else 4
+    return {"conv3x3_fwd": fwd, "conv3x3_dgrad": 4, "conv3x3_wgrad": 4,
+            "mil_pool_fwd": 3}
+
+
+def fit_phase(workdir):
+    """fit() for one epoch on the synthetic full-width cohort."""
+    cfg = train_cfg(save_dir=workdir)
+    t0 = time.time()
+    syn = SyntheticCohort(cfg, n_per_hospital=TRAIN_PATIENTS,
+                          ct_shape=tuple(cfg.ct_shape), bag_range=BAG_RANGE,
+                          seed=SEED)
+    train_ds, valid_ds = syn.dataset(cfg, "train"), syn.dataset(cfg, "valid")
+    cohort_s = time.time() - t0
+    sampler = ShardedEpochSampler(len(train_ds), shuffle=True, seed=cfg.seed)
+    train_loader = BatchLoader(train_ds, cfg.batch_size, sampler=sampler,
+                               num_workers=cfg.num_workers)
+    valid_loader = BatchLoader(valid_ds, cfg.batch_size,
+                               num_workers=cfg.num_workers)
+    state = create_train_state(build_model(cfg), cfg,
+                               steps_per_epoch=len(train_loader))
+    watched = (LAYER1_GRADS[0], "extractor_CT.model.layer1.0.conv1.1."
+               "running_mean", "extractor_CT.model.stem.1.running_var",
+               "clinic_extractor.ctx", *HEAD_GRADS)
+    before = snapshot(state.model, watched)
+    zero_counts()
+    t0 = time.time()
+    summary = fit(cfg, train_loader, valid_loader, save_dir=workdir,
+                  state=state)
+    torch.cuda.synchronize()
+    fit_s = time.time() - t0
+    launched = counts()
+    tm, vm = summary["train"], summary["valid"]
+    check(not summary.get("preempted") and np.isfinite(tm["loss"])
+          and np.isfinite(vm["loss"]) and all(
+              np.isfinite(tm[k]) for k in ("loss_CT", "loss_Pth",
+                                           "loss_Last")),
+          f"fit: non-finite losses {tm} {vm}")
+    after = snapshot(state.model, watched)
+    unchanged = [k for k in watched if torch.equal(before[k], after[k])]
+    check(not unchanged, f"fit: unchanged after an epoch: {unchanged}")
+    # launches the code implies: steps x a step's, and a forward a
+    # validation batch (4 conv3x3, 3 mil_pool)
+    remat = "early" if cfg.batch_size >= 2 else "layer2"
+    steps, vbatches = tm["n_batches"], vm["n_batches"]
+    per_step = step_launches(remat)
+    want = {k: steps * v for k, v in per_step.items()}
+    want["conv3x3_fwd"] += 4 * vbatches
+    want["mil_pool_fwd"] += 3 * vbatches
+    check(launched == want, f"fit: launches {launched}, the code implies "
+          f"{want} ({steps} steps at ct_remat={remat}, {vbatches} "
+          f"validation batches)")
+    lines = [f"cohort {len(train_ds)} train / {len(valid_ds)} valid patients "
+             f"of 1x{cfg.ct_shape[0]}x{cfg.ct_hw}x{cfg.ct_hw} + "
+             f"{BAG_RANGE[0]}-{BAG_RANGE[1] - 1} rows, made in "
+             f"{cohort_s:.1f} s; fit {fit_s:.1f} s: {steps} steps at batch "
+             f"{cfg.batch_size} (ct_remat {remat}), {vbatches} validation "
+             f"batches; train loss {tm['loss']:.4f} (CT {tm['loss_CT']:.4f} "
+             f"Pth {tm['loss_Pth']:.4f} Last {tm['loss_Last']:.4f}) "
+             f"step_ms {tm['step_ms']:.1f}; valid loss {vm['loss']:.4f} auc "
+             f"{vm['auc']:.3f}; launches {launched} = {per_step} a step"]
+    return cfg, state, train_loader, lines, launched
+
+
+def resume_phase(cfg, state, loader, workdir):
+    """A checkpoint saved mid-epoch and resumed gives the same next step,
+    bit for bit: the uninterrupted state steps on the epoch's second batch,
+    then a freshly built model resumes from the checkpoint and steps on the
+    batch the loader gives after skip_next(1)."""
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    step = make_train_step(cfg)
+    epoch, bs = 1, cfg.batch_size
+    loader.set_epoch(epoch)
+    second = [loader.ds.records[int(i)]["patientid"]
+              for i in loader.sampler.indices()[bs:2 * bs]]
+    loader.skip_next(1)
+    batch = loader.first_batch()
+    check(list(batch["ID"]) == second,
+          f"skip_next(1) gave {batch['ID']}, the epoch's second batch is "
+          f"{second}")
+    path = ckpt.save_checkpoint(state, workdir, epoch, next_epoch=epoch,
+                                batch_in_epoch=1)
+    placed = place_batch({k: v for k, v in batch.items() if k != "ID"},
+                         torch.device(DEV))
+    state, m1 = step(state, placed)
+    torch.cuda.synchronize()
+    fresh = create_train_state(build_model(cfg, seed=SEED + 7), cfg,
+                               steps_per_epoch=len(loader))
+    fresh, start_epoch, start_batch = ckpt.resume(fresh, path)
+    check((start_epoch, start_batch) == (epoch, 1),
+          f"resume gave epoch {start_epoch} batch {start_batch}")
+    fresh, m2 = step(fresh, placed)
+    torch.cuda.synchronize()
+    torch.backends.cudnn.deterministic = False
+    check(torch.equal(m1["loss"], m2["loss"]),
+          f"resumed step loss {float(m2['loss'])} != {float(m1['loss'])}")
+    a, b = state.model.state_dict(), fresh.model.state_dict()
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    check(not differ and fresh.step == state.step,
+          f"resumed step differs in {len(differ)} tensors: {differ[:5]}")
+    return [f"mid-epoch checkpoint (epoch {epoch}, batch 1) resumed: next "
+            f"step loss {float(m1['loss']):.6f} both ways, {len(a)} tensors "
+            f"and the step counter ({state.step}) bit-identical"]
+
+
+def watch_conv(model, store):
+    """In the next train step, keep the operands (x, k, dy) and the results
+    (y, dx, dk) of one layer1 convolution of ``model`` in ``store``.
+    Returns the function that undoes this and empties ``store`` (the
+    wrapper refers to the module, so without it model and tensors would
+    wait for the garbage collector)."""
+    conv = model.get_submodule(WATCHED_CONV)
+    real = conv._conv2d
+
+    def conv2d(x, k):
+        y = real(x, k)
+        if "x" not in store:
+            store.update(x=x.detach(), k=k.detach(), y=y.detach())
+            for name, t in (("dx", x), ("dy", y), ("dk", k)):
+                t.register_hook(lambda g, name=name:
+                                store.setdefault(name, g.detach()))
+        return y
+
+    def unwatch():
+        del conv._conv2d
+        store.clear()
+
+    conv._conv2d = conv2d
+    return unwatch
+
+
+def held_against_plain(store, dtype, kernel_route):
+    """The watched convolution's results against the plain versions on its
+    own operands: dk (either route) to the fp64 sum, element by element;
+    y and dx (the conv3x3 route's kernels) to CONV_TOL.  Returns the worst
+    ratio of error to tolerance of each and checks that it is <= 1."""
+    x, k, dy = store["x"], store["k"], store["dy"].to(store["x"].dtype)
+    ref = conv3x3_wgrad_plain(x, dy, torch.float64).double()
+    mag = conv3x3_wgrad_plain(x.abs(), dy.abs(), torch.float64).double()
+    err = (store["dk"].double() - ref).abs()
+    tol = STEP_WGRAD_ROUND[dtype] * ref.abs() + STEP_WGRAD_TOL * mag
+    out = {"dk_err_over_tol": float((err / tol.clamp_min(1e-300)).max()),
+           "dk_err_rel": float(err.max() / ref.abs().max()),
+           "dk_cancel": float(mag.max() / ref.abs().max())}
+    del ref, mag, err, tol
+    if kernel_route:
+        for name, got, plain in (
+                ("y", store["y"], lambda: conv3x3_plain(x, k)),
+                ("dx", store["dx"], lambda: conv3x3_dgrad_plain(dy, k))):
+            ref = plain()
+            e = float((got.float() - ref.float()).abs().max())
+            out[f"{name}_err_over_tol"] = e / (
+                CONV_TOL[x.dtype] * float(ref.float().abs().max()))
+            del ref
+    for name, v in out.items():
+        check(not name.endswith("_over_tol") or v <= 1.0,
+              f"train step {dtype} {'conv3x3' if kernel_route else 'stock'} "
+              f"route: {WATCHED_CONV} {name} {v:.3e} against the plain "
+              f"version on its own operands: {out}")
+    return out
+
+
+def route_step_phase(host_batch):
+    """One train step at batch 1 from the same weights on the same batch:
+    conv3x3 route against the stock route, fp32 (TF32 off) and bf16; then
+    step time by CUDA events and peak memory of each; then one more step on
+    each route whose layer1 convolution is held against the plain versions
+    on its own operands."""
+    lines, rows = [], {}
+    tensors = place_batch(host_batch, torch.device(DEV))
+    weights = None
+    for dtype in ("float32", "bfloat16"):
+        got = {}
+        for backend in ("pallas", "xla"):
+            cfg = train_cfg(dtype, backend, batch=1)
+            model = build_model(cfg)
+            if weights is None:       # a copy: the steps update in place
+                weights = {k: v.clone() for k, v in
+                           model.state_dict().items()}
+            model.load_state_dict(weights)
+            state = create_train_state(model, cfg, steps_per_epoch=10)
+            dropout_off(model)
+            grads = {}
+            real_step = state.optimizer.step
+
+            def capture(real_step=real_step, grads=grads, model=model):
+                if not grads:
+                    named = dict(model.named_parameters())
+                    for k in LAYER1_GRADS + HEAD_GRADS:
+                        grads[k] = named[k].grad.detach().clone()
+                return real_step()
+
+            state.optimizer.step = capture
+            step = make_train_step(cfg)
+            zero_counts()
+            torch.cuda.reset_peak_memory_stats()
+            state, m = step(state, tensors)
+            torch.cuda.synchronize()
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            launched = counts()
+            want = (step_launches("layer2") if backend == "pallas" else
+                    {"conv3x3_fwd": 0, "conv3x3_dgrad": 0,
+                     "conv3x3_wgrad": 0, "mil_pool_fwd": 3})
+            check(launched == want, f"train step {dtype} {backend}: launches "
+                  f"{launched}, expected {want}")
+            times = []
+            for _ in range(3):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                state, _ = step(state, tensors)
+                end.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(end))
+            store = {}
+            unwatch = watch_conv(model, store)
+            state, _ = step(state, tensors)
+            torch.cuda.synchronize()
+            held = held_against_plain(store, dtype, backend == "pallas")
+            unwatch()
+            got[backend] = {"loss": m["loss"].float(), "grads": grads,
+                            "ms": float(np.median(times)),
+                            "peak_gb": peak_gb, "held": held}
+            del state, model, step
+            torch.cuda.empty_cache()
+        tol = STEP_TOL[dtype]
+        k_, s_ = got["pallas"], got["xla"]
+        loss_err = float((k_["loss"] - s_["loss"]).abs())
+        loss_tol = tol["loss"] * (1.0 if dtype == "bfloat16"
+                                  else float(s_["loss"].abs()))
+        errs, tops = {}, {}
+        for name in LAYER1_GRADS + HEAD_GRADS:
+            a, b = k_["grads"][name].float(), s_["grads"][name].float()
+            tops[name] = float(b.abs().max())
+            errs[name] = float((a - b).abs().max()) / max(tops[name], 1e-30)
+            if not bool(torch.isfinite(a).all()):
+                errs[name] = float("inf")
+        print(f"[train] batch 1 {dtype} gradient errors of their max: "
+              f"{json.dumps(errs)}", flush=True)
+        check(bool(torch.isfinite(k_["loss"])) and loss_err <= loss_tol,
+              f"train step {dtype}: loss {float(k_['loss'])} on the conv3x3 "
+              f"route, {float(s_['loss'])} on the stock route (tolerance "
+              f"{loss_tol})")
+        for name in LAYER1_GRADS:        # read, not held: see STEP_TOL
+            check(bool(torch.isfinite(k_["grads"][name]).all()),
+                  f"train step {dtype}: non-finite {name} gradient")
+        for name in HEAD_GRADS:
+            check(tops[name] > 0 and errs[name] <= tol["head_rel"],
+                  f"train step {dtype}: {name} gradient {errs[name]:.3e} of "
+                  f"its max {tops[name]:.3e} from the stock route's "
+                  f"(tolerance {tol['head_rel']})")
+        worst_l1 = max(errs[n] for n in LAYER1_GRADS)
+        worst_head = max(errs[n] for n in HEAD_GRADS)
+        rows[dtype] = {"loss_err": loss_err, "layer1_grad_rel": worst_l1,
+                       "head_grad_rel": worst_head,
+                       "held_conv3x3": k_["held"], "held_stock": s_["held"],
+                       "step_ms": k_["ms"], "step_ms_stock": s_["ms"],
+                       "peak_gb": k_["peak_gb"],
+                       "peak_gb_stock": s_["peak_gb"]}
+        lines.append(
+            f"batch 1 {dtype}: loss {float(k_['loss']):.6f} vs stock "
+            f"{float(s_['loss']):.6f} (err {loss_err:.2e}, tol "
+            f"{loss_tol:.2e}); head grads {worst_head:.2e} of their max (tol "
+            f"{tol['head_rel']}); layer1 grads {worst_l1:.2e} apart (read); "
+            f"{WATCHED_CONV} against plain on its own operands, conv3x3 "
+            f"route {json.dumps(k_['held'])}, stock route "
+            f"{json.dumps(s_['held'])}; "
+            f"step_ms {k_['ms']:.1f} stock {s_['ms']:.1f} (median of 3); "
+            f"peak_GB {k_['peak_gb']:.2f} stock {s_['peak_gb']:.2f}")
+    del tensors
+    return lines, rows
+
+
+def train_phase():
+    """fit() with the counts at 0 just before and read just after (the
+    main path); then the resume and route checks, whose launches do not
+    count."""
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        cfg, state, loader, lines, launched = fit_phase(workdir)
+        batch1 = BatchLoader(loader.ds, 1, prefetch=0).first_batch()
+        batch1 = {k: v for k, v in batch1.items() if k != "ID"}
+        lines += resume_phase(cfg, state, loader, workdir)
+        del state, loader
+        torch.cuda.empty_cache()
+        route_lines, route_rows = route_step_phase(batch1)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return lines + route_lines, launched, route_rows
+
+
 # ------------------------------------------------------------------- main --
 
 def main():
@@ -655,6 +1166,9 @@ def main():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False); this script runs on the card only", file=sys.stderr)
         return 1
+    # cuBLAS gives the same bits run to run only with a fixed workspace;
+    # read when its handle is made, at the first product
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     t_start = time.time()
     torch.backends.cuda.matmul.allow_tf32 = False    # fp32 means fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -668,7 +1182,8 @@ def main():
           flush=True)
 
     t0 = time.time()
-    names = ("mil_pool", "conv3x3")         # one nvcc each, started together
+    names = ("mil_pool", "conv3x3", "conv3x3_wgrad")   # one nvcc each,
+    # all started together
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         libs = list(pool.map(
             lambda name: build.build_library(name, verbose=True), names))
@@ -695,9 +1210,25 @@ def main():
               f"{s['library_ms']:.4f} bound_ms {s['bound_ms']:.4f} "
               f"({s['bound_by']})", flush=True)
 
+    bwd_rows = conv_bwd_phase()
+    for r in bwd_rows:
+        print(f"[kernels-bwd] {r['shape']}: dgrad err {r['dgrad_err']:.2e} "
+              f"(tol {r['dgrad_tol']:.2e}; cuDNN {r['dgrad_library_err']:.2e}"
+              f") ms {r['dgrad_ms']:.4f} plain_ms {r['dgrad_plain_ms']:.4f} "
+              f"library_ms {r['dgrad_library_ms']:.4f} bound_ms "
+              f"{r['dgrad_bound_ms']:.4f} ({r['dgrad_bound_by']}) | wgrad "
+              f"err vs fp64 {r['wgrad_err']:.2e} (tol {r['wgrad_tol']:.2e}; "
+              f"cuDNN {r['wgrad_library_err']:.2e}, plain fp32 "
+              f"{r['wgrad_plain_fp32_err']:.2e}) same bits twice "
+              f"{r['wgrad_same_bits']} ms {r['wgrad_ms']:.4f} plain_ms "
+              f"{r['wgrad_plain_ms']:.4f} library_ms "
+              f"{r['wgrad_library_ms']:.4f} bound_ms "
+              f"{r['wgrad_bound_ms']:.4f} ({r['wgrad_bound_by']})",
+              flush=True)
+    bwd_compared = counts()
+
     # the main paths: every count to 0 just before, read just after
-    mil_pool.launches = 0
-    conv3x3.launches = 0
+    zero_counts()
     model_lines, (cfg, model) = model_phase()
     for line in model_lines:
         print(f"[model] {line}", flush=True)
@@ -711,10 +1242,26 @@ def main():
         print(f"[model-ct] {line}", flush=True)
     serve_ct_lines = serve_ct_phase(cfg, model)
     print(f"[serve-ct] {'; '.join(serve_ct_lines)}", flush=True)
-    launches = mil_pool.launches
-    conv_launches = conv3x3.launches
-    check(launches > 0, "the main paths never launched mil_pool")
-    check(conv_launches >= 4, "the CT path never launched conv3x3")
+    serve_launched = counts()
+    check(serve_launched["mil_pool_fwd"] > 0,
+          "the serving paths never launched mil_pool")
+    check(serve_launched["conv3x3_fwd"] >= 4,
+          "the CT serving path never launched conv3x3")
+    check(serve_launched["conv3x3_dgrad"] == serve_launched["conv3x3_wgrad"]
+          == 0, "the serving paths launched a gradient kernel")
+    del model
+    torch.cuda.empty_cache()
+
+    train_lines, train_launched, route_rows = train_phase()   # zeroes counts
+    for line in train_lines:
+        print(f"[train] {line}", flush=True)
+    for k in ("conv3x3_fwd", "conv3x3_dgrad", "conv3x3_wgrad",
+              "mil_pool_fwd"):
+        check(train_launched[k] > 0, f"the training path never launched {k}")
+    launched = {k: serve_launched[k] + train_launched[k]
+                for k in serve_launched}
+    launches = launched["mil_pool_fwd"]
+    conv_launches = launched["conv3x3_fwd"]
 
     head = next(s for s in shapes if s["shape"].startswith(
         "x".join(map(str, HEADLINE_SHAPE[:3]))))
@@ -743,8 +1290,33 @@ def main():
         "timed_at": conv_head["shape"],
         "comparison_launches": conv_compared, "shapes": conv_shapes,
     }]
-    print(f"[done] {time.time() - t_start:.1f} s, main-path launches: "
-          f"mil_pool {launches}, conv3x3 {conv_launches}", flush=True)
+    bwd_head = bwd_rows[0]
+    for which, source, replaces in (
+            ("dgrad", "llmmil_tpu_torch/csrc/conv3x3.cu",
+             "llmmil_tpu/ops/pallas/conv3x3.py:293"),
+            ("wgrad", "llmmil_tpu_torch/csrc/conv3x3_wgrad.cu",
+             "llmmil_tpu/ops/pallas/conv3x3.py:250")):
+        name = f"conv3x3_{which}"
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launched[name],
+            "max_abs_err": max(r[f"{which}_err"] for r in bwd_rows),
+            "ms": bwd_head[f"{which}_ms"],
+            "plain_ms": bwd_head[f"{which}_plain_ms"],
+            "bound_ms": bwd_head[f"{which}_bound_ms"],
+            "bound_by": bwd_head[f"{which}_bound_by"],
+            "library_ms": bwd_head[f"{which}_library_ms"],   # cuDNN
+            "timed_at": bwd_head["shape"],
+            "comparison_launches": bwd_compared[name],
+            "shapes": [{k: v for k, v in r.items()
+                        if k == "shape" or k.startswith(which)}
+                       for r in bwd_rows]})
+    for k in kernels:
+        k["launches_by_path"] = {"serve": serve_launched[k["name"]],
+                                 "train": train_launched[k["name"]]}
+    print(f"[done] {time.time() - t_start:.1f} s, main-path launches "
+          f"(serve + train): {launched}; train step on both routes: "
+          f"{json.dumps(route_rows)}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -192,7 +192,9 @@ class Config:
     moe_group: int = 512
     moe_aux_weight: float = 0.01
     ep_axis: str = ""                  # inert here
-    ct_remat: str = "auto"             # accepted; inference keeps nothing
+    # Which CT trunk stages recompute their activations in the backward
+    # ('all' | 'early' | 'layer2' | 'none'); 'auto' → resolve_memory_config
+    ct_remat: str = "auto"
     # Temporal (kD>1) convolutions of the CT trunk: 'conv3d' is a plain 3-D
     # convolution; 'dfold' / 'dsum' / 'dshift' compute the same thing as
     # depth-folded 2-D convolutions (models/ct_mc3.py::DepthFoldedConv).
@@ -261,6 +263,20 @@ class Config:
     def from_dict(cls, d: dict) -> "Config":
         names = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in names})
+
+
+def resolve_memory_config(cfg: Config, training: bool) -> Config:
+    """Resolve ``ct_remat='auto'`` as the JAX package does: 'early' when
+    training at batch >= 2, else 'layer2'.  An explicit value passes through.
+    (The rule was measured on a 16 GB TPU; on the card it is kept as the same
+    default, not as a measurement.)"""
+    if cfg.ct_remat != "auto":
+        return cfg
+    remat = "early" if (training and cfg.batch_size >= 2) else "layer2"
+    if remat == "early":
+        print(f"[memory] ct_remat=auto -> 'early' (batch_size="
+              f"{cfg.batch_size} >= 2)", flush=True)
+    return cfg.replace(ct_remat=remat)
 
 
 def create_arg_parser() -> argparse.ArgumentParser:

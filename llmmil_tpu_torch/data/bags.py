@@ -1,9 +1,11 @@
-"""Pathology feature-bag handling: padding and bucketing.
+"""Pathology feature-bag handling: instance dropout, padding and bucketing.
 
-Bags are padded to the smallest power-of-2-ish *bucket* and carry a validity
-mask: few distinct shapes reach the model, little padding is computed on,
-and the masked softmax downstream is exact.  Train-time instance dropout and
-the native C++ packer of the JAX package are not ported yet.
+Train-time instance dropout keeps a sorted random 90 % (Biopsy) / 80 %
+(Resection) of a bag's rows.  Bags are padded to the smallest power-of-2-ish
+*bucket* and carry a validity mask: few distinct shapes reach the model,
+little padding is computed on, and the masked softmax downstream is exact.
+The native C++ packer of the JAX package is not ported (ROADMAP.md, Queue 1
+item 11); its numpy path is.
 """
 
 from __future__ import annotations
@@ -13,6 +15,15 @@ from typing import Sequence, Tuple
 import numpy as np
 
 DEFAULT_BUCKETS = (512, 1024, 2048, 4096, 8192, 16384)
+
+
+def instance_dropout(feat: np.ndarray, kind: str,
+                     rng: np.random.RandomState) -> np.ndarray:
+    """Keep a sorted random 90 % (Biopsy) / 80 % (Resection) of the rows,
+    drawing from ``rng`` as the JAX package does."""
+    n = feat.shape[0]
+    keep = int(n * (0.9 if kind == "Biopsy" else 0.8))
+    return feat[np.sort(rng.choice(n, size=keep, replace=False))]
 
 
 def bucket_for(n: int, buckets: Sequence[int] = DEFAULT_BUCKETS) -> int:

@@ -1,8 +1,9 @@
-"""Where a forward of the flagship spends its time on the card.
+"""Where a forward (or a train step) of the flagship spends its time on the
+card.
 
 ``python -m llmmil_tpu_torch.eval.profile_forward [--model_ci CLIP]
 [--batch 8] [--bag 8192] [--no_kernel] [--ct tri|only] [--ct_depth 160]
-[--ct_conv_backend pallas|xla]`` builds the flagship at full width with
+[--ct_conv_backend pallas|xla] [--train]`` builds the flagship at full width with
 seeded random weights (the pathology model, or with ``--ct`` the tri-modal
 or the CT-only one on 512 x 512 slices), runs a few forwards under
 ``torch.profiler`` and prints one JSON line: the card, milliseconds per
@@ -10,7 +11,11 @@ forward on the host's clock, the device's busy milliseconds per forward (sum
 of kernel times), its idle share, the number of kernels per forward, the
 kernels that take the most time and, with ``--ct``, the span on the device
 of each part of the model (trunk, clinical encoder, fusion, pooling), from
-its first kernel's start to its last kernel's end.  It needs a CUDA card.
+its first kernel's start to its last kernel's end.  ``--train`` profiles
+train steps instead (forward, multi-head loss, backward, SGD update;
+``ct_remat`` resolved for the batch, dropout on): the same keys, per step,
+with the forward's parts labelled (the backward runs outside them).  It
+needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -43,6 +48,8 @@ def main(argv=None) -> dict:
     p.add_argument("--ct_depth", type=int, default=160)
     p.add_argument("--ct_conv_backend", default="pallas",
                    choices=["pallas", "xla"])
+    p.add_argument("--train", action="store_true",
+                   help="profile train steps instead of forwards")
     args = p.parse_args(argv)
 
     kw = dict(modality=["pathology"], model_pathology="ABMIL",
@@ -58,6 +65,8 @@ def main(argv=None) -> dict:
                   else ["CT"], model_CT="resnetMC3_18",
                   loss_point="CT-Pth-Last", ct_temporal_mode="dfold",
                   ct_conv_backend=args.ct_conv_backend)
+    if args.train:
+        kw.update(batch_size=args.batch, ct_remat="auto")
     cfg = Config(**kw)
     model = build_model(cfg)                 # raises without a card
     rs = np.random.RandomState(0)
@@ -70,24 +79,39 @@ def main(argv=None) -> dict:
             args.bag // 2, args.bag + 1, (args.batch, 1))
     if "input_CT" in host:
         host["input_CT"] = rs.rand(*host["input_CT"].shape).astype(np.float32)
+    if args.train:
+        host["label"] = np.eye(cfg.num_classes, dtype=np.float32)[
+            rs.randint(0, cfg.num_classes, args.batch)]
     tensors = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
     parts = _label_parts(model) if args.ct else []
+    if args.train:
+        from ..train import create_train_state, make_train_step
+        from ..config import resolve_memory_config
+        cfg = resolve_memory_config(cfg, training=True)
+        state = create_train_state(model, cfg, steps_per_epoch=100)
+        train_step = make_train_step(cfg)
 
-    with torch.inference_mode():
-        for _ in range(3):
-            model(tensors)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(args.iters):
-            model(tensors)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / args.iters
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(args.iters):
+        def run():
+            train_step(state, tensors)
+    else:
+        def run():
+            with torch.inference_mode():
                 model(tensors)
-            torch.cuda.synchronize()
+
+    for _ in range(3):
+        run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(args.iters):
+        run()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / args.iters
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(args.iters):
+            run()
+        torch.cuda.synchronize()
     for handle in parts:
         handle.remove()
     on_device = [e for e in prof.events()
@@ -115,7 +139,9 @@ def main(argv=None) -> dict:
         "card": card, "config": f"{args.model_ci} {args.batch}x{args.bag} "
         f"bf16 kernel={'off' if args.no_kernel else 'on'}" + (
             f" ct={args.ct} depth={args.ct_depth} "
-            f"conv={args.ct_conv_backend}" if args.ct else ""),
+            f"conv={args.ct_conv_backend}" if args.ct else "") + (
+            f" train ct_remat={cfg.ct_remat}" if args.train else ""),
+        "per": "train step" if args.train else "forward",
         "wall_ms_per_forward": wall_ms,
         "device_busy_ms_per_forward": busy_ms,
         "device_idle_share": (max(0.0, 1.0 - busy_ms / wall_ms)

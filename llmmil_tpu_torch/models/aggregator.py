@@ -29,7 +29,7 @@ from typing import Any, Dict
 import torch
 import torch.nn as nn
 
-from ..config import Config
+from ..config import Config, resolve_memory_config
 from ..device import resolve_device
 from ..ops.kernels import resolve_use_kernel
 from ..ops.positional import sinusoidal_pe
@@ -86,9 +86,11 @@ def mask_centroids(m: torch.Tensor) -> torch.Tensor:
 
 
 def make_ct_extractor(cfg: Config, dtype: torch.dtype) -> nn.Module:
-    """CT-extractor factory.  ``ct_remat`` is accepted and does nothing:
-    nothing is kept for a backward under ``torch.inference_mode()``; its
-    mapping onto ``torch.utils.checkpoint`` comes with training."""
+    """CT-extractor factory.  ``ct_remat='auto'`` resolves as the JAX
+    package resolves it for a module built directly (training assumptions,
+    ``resolve_memory_config``); rematerialisation acts only while the trunk
+    trains with autograd on."""
+    cfg = resolve_memory_config(cfg, training=True)
     if cfg.ct_layers and cfg.model_CT not in _MC3:
         # loud rejection: ct_layers only shapes the MC3 stages — silently
         # ignoring it for other trunks would mislead dryrun/debug users
@@ -107,7 +109,7 @@ def make_ct_extractor(cfg: Config, dtype: torch.dtype) -> nn.Module:
             layers=tuple(cfg.ct_layers) or (2, 2, 2, 2),
             temporal_mode=cfg.ct_temporal_mode,
             conv_backend=cfg.ct_conv_backend,
-            fwd_lowering=cfg.ct_fwd_lowering)
+            fwd_lowering=cfg.ct_fwd_lowering, remat=cfg.ct_remat)
     if cfg.model_CT in ("medicalNet", "resnet2plus1d_18", "MViT") \
             or "SwinUNETR" in cfg.model_CT:
         raise NotImplementedError(_CT_TRUNK_ITEM.format(kind=cfg.model_CT))

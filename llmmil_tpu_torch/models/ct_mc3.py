@@ -18,10 +18,14 @@ takes.  Weights are stored OIDHW under torchvision's ``mc3_18`` key names
 (``stem.0/.1``, ``layer{i}.{b}.conv1.0/.1``, ``conv2.0/.1``,
 ``downsample.0/.1``) and the reference's ``downsampling.weight/.bias``.
 
-Inference only so far: BatchNorm runs on its running statistics; its
-training mode, the custom backward of ``fwd_lowering="conv3d"``, activation
-rematerialisation (``ct_remat``) and depth sharding come with the training
-and ``parallel`` slices.  ``MedicalNetFeatures`` is not ported yet.
+Training as the JAX package trains it: BatchNorm normalises with the
+batch's statistics and moves its running ones as flax does (biased variance,
+momentum 0.9); ``remat`` (``Config.ct_remat``) recomputes the activations of
+chosen stages in the backward with ``torch.utils.checkpoint``, one block at a
+time, without moving the running statistics a second time; the
+``fwd_lowering="conv3d"`` forward takes its gradients from the fold form, as
+the JAX package's custom VJP does.  Depth sharding comes with the
+``parallel`` slice; ``MedicalNetFeatures`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.kernels import conv3x3
 from .layers import normal_
@@ -39,6 +44,7 @@ from .layers import normal_
 TEMPORAL_MODES = ("conv3d", "dfold", "dsum", "dshift")
 CONV_BACKENDS = ("xla", "pallas")
 FWD_LOWERINGS = ("fold", "conv3d")
+REMAT_MODES = ("all", "early", "layer2", "none")
 
 
 def conv2d_nhwc(x, k, stride, padding):
@@ -171,6 +177,16 @@ class DepthFoldedConv(_ConvParams):
         return self._cached("dsum", lambda p: p.to(dt).permute(
             2, 3, 4, 1, 0).contiguous())        # (kD, kH, kW, C, F)
 
+    def _dfold(self, xp, k, dout):
+        """The dfold form: the kD depth-shifted views of the padded input
+        concatenated on channels, one 2-D convolution with the HWIO kernel
+        k; (B·Dout, H', W', F)."""
+        kd, sd = self.kernel[0], self.stride[0]
+        b, _, h, w, cin = xp.shape
+        span = sd * (dout - 1) + 1
+        y = torch.cat([xp[:, i:i + span:sd] for i in range(kd)], dim=-1)
+        return self._conv2d(y.reshape(b * dout, h, w, kd * cin), k)
+
     def forward(self, x):
         kd, kh, kw = self.kernel
         sd, sh, sw = self.stride
@@ -185,13 +201,10 @@ class DepthFoldedConv(_ConvParams):
         if self.mode == "dfold":
             if self.fwd_lowering == "conv3d" and not self.use_kernel \
                     and cin >= 8 and (f < 128 or (kh == 1 and kw == 1)):
-                out = conv3d_ndhwc(
-                    xp, self._cached("w", lambda p: p.to(x.dtype)),
-                    self.stride, (0, ph, pw))
+                out = _Conv3dFoldGrad.apply(
+                    xp, self._cached("w", lambda p: p.to(x.dtype)), self)
                 return self._add_bias(out)
-            y = torch.cat([xp[:, i:i + span:sd] for i in range(kd)], dim=-1)
-            out = self._conv2d(y.reshape(b * dout, h, w, kd * cin),
-                               self._folded())
+            out = self._dfold(xp, self._folded(), dout)
         elif self.mode == "dshift":
             dp = xp.shape[1]
             y = self._conv2d(xp.reshape(b * dp, h, w, cin), self._folded())
@@ -211,24 +224,81 @@ class DepthFoldedConv(_ConvParams):
         return out.reshape(b, dout, *out.shape[1:])
 
 
+class _Conv3dFoldGrad(torch.autograd.Function):
+    """``fwd_lowering="conv3d"``: the forward is one ``F.conv3d`` and the
+    gradients are those of the dfold form, as the JAX package's custom VJP
+    takes them (``jax.linear_transpose`` of the fold form).  PyTorch has no
+    linear transpose, so the backward runs autograd over the fold form
+    recomputed from the saved input: the same gradients, one more forward."""
+
+    @staticmethod
+    def forward(ctx, xp, w, conv):
+        ctx.save_for_backward(xp, w)
+        ctx.conv = conv
+        _, ph, pw = conv.padding
+        return conv3d_ndhwc(xp, w, conv.stride, (0, ph, pw))
+
+    @staticmethod
+    def backward(ctx, g):
+        xp, w = ctx.saved_tensors
+        conv = ctx.conv
+        f, cin, kd, kh, kw = w.shape
+        with torch.enable_grad():
+            a = xp.detach().requires_grad_(ctx.needs_input_grad[0])
+            k = w.detach().requires_grad_(ctx.needs_input_grad[1])
+            k2 = k.permute(3, 4, 2, 1, 0).reshape(kh, kw, kd * cin, f)
+            out = conv._dfold(a, k2, g.shape[1])
+            wanted = [t for t in (a, k) if t.requires_grad]
+            grads = iter(torch.autograd.grad(
+                out, wanted, g.reshape(out.shape)))
+        return (next(grads) if a.requires_grad else None,
+                next(grads) if k.requires_grad else None, None)
+
+
 class BatchNorm(nn.BatchNorm3d):
     """BatchNorm over the last (channel) axis of an NDHWC tensor, eps 1e-5,
     momentum 0.1 (flax's 0.9).  As flax's ``BatchNorm(dtype=bf16)`` it
     keeps fp32 statistics and parameters, computes in fp32 and returns the
-    compute type."""
+    compute type.
+
+    In training mode it normalises with the batch's mean and *biased*
+    variance over (B, D, H, W) and moves the running statistics by those
+    same values, as flax does (``nn.BatchNorm3d`` would store the unbiased
+    variance): ``running = 0.9 · running + 0.1 · batch``.  The normalisation
+    is ``F.batch_norm`` on a channels-last view (one statistics pass and one
+    elementwise pass on the card, its own backward); the running update is
+    written here.  ``update_stats = False`` leaves the running statistics
+    alone: a rematerialised block's second forward sets it (flax's
+    ``nn.remat`` moves them once)."""
 
     def __init__(self, features: int, dtype: torch.dtype = torch.float32):
         super().__init__(features, eps=1e-5, momentum=0.1)
         self.compute_dtype = dtype
+        self.update_stats = True
 
     def forward(self, x):
-        if self.training:
-            raise NotImplementedError(
-                "BatchNorm in training mode comes with the training slice "
-                "(ROADMAP.md, Queue 1 item 3); call .eval() first")
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x.float() - self.running_mean) * mul + self.bias
-        return y.to(self.compute_dtype)
+        if not self.training:
+            mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+            y = (x.float() - self.running_mean) * mul + self.bias
+            return y.to(self.compute_dtype)
+        c = x.shape[-1]
+        view = x.to(self.compute_dtype).movedim(-1, 1)    # channels-last
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.zeros_like(self.running_var)
+        # momentum 1 writes the batch's mean and unbiased variance into
+        # the scratch buffers
+        y = F.batch_norm(view, mean, var, self.weight, self.bias, True, 1.0,
+                         self.eps)
+        if self.update_stats:
+            n = x.numel() // c
+            m = self.momentum
+            with torch.no_grad():
+                self.running_mean.copy_((1 - m) * self.running_mean
+                                        + m * mean)
+                self.running_var.copy_((1 - m) * self.running_var
+                                       + m * (var * ((n - 1) / n)))
+                self.num_batches_tracked += 1
+        return y.movedim(1, -1).contiguous()
 
     def init_weights(self, generator) -> None:
         self.reset_parameters()          # scale 1, bias 0, mean 0, var 1
@@ -284,13 +354,54 @@ class BasicBlock3D(nn.Module):
         return torch.relu(x + y)
 
 
+def _remat_mode(remat) -> str:
+    """``Config.ct_remat`` after ``resolve_memory_config``, or the JAX
+    module's booleans: True → 'all', False / None → 'none'."""
+    if remat is True:
+        return "all"
+    if remat is False or remat is None:
+        return "none"
+    if remat not in REMAT_MODES:
+        raise ValueError(f"unknown ct_remat {remat!r}; expected one of "
+                         f"{REMAT_MODES} (or 'auto' before "
+                         f"resolve_memory_config)")
+    return remat
+
+
+def _rematerialised(block: nn.Module, x):
+    """``block(x)`` whose activations are recomputed in the backward
+    (``torch.utils.checkpoint``, non-reentrant).  The recomputation runs
+    with the block's BatchNorms' ``update_stats`` off, so that the running
+    statistics move once a step, as under flax's ``nn.remat``; it normalises
+    with the same batch statistics, so it gives the same activations.  The
+    trunk draws no random numbers, so no RNG state is kept."""
+    first = [True]
+
+    def run(inp):
+        if first[0]:
+            first[0] = False
+            return block(inp)
+        norms = [m for m in block.modules() if isinstance(m, BatchNorm)]
+        for m in norms:
+            m.update_stats = False
+        try:
+            return block(inp)
+        finally:
+            for m in norms:
+                m.update_stats = True
+
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
+
+
 class VideoResNetFeatures(nn.Module):
     """MC3-18 trunk (stem + layers 1-4), returning the layer4 NDHWC map.
 
     ``temporal_layers`` selects which stages use full 3-D convolutions: MC3
     is (True, False, False, False); an all-True tuple gives R3D-18.  As in
     the JAX package the stem gets no ``conv_backend``: only layer1's
-    (3,3,3) convolutions can reach the ``conv3x3`` kernel.
+    (3,3,3) convolutions can reach the ``conv3x3`` kernel.  ``remat``
+    ('all' | 'early' = stages 1-2 | 'layer2' | 'none') names the stages whose
+    blocks are rematerialised when the module trains with autograd on.
     """
 
     def __init__(self, layers: Sequence[int] = (2, 2, 2, 2),
@@ -299,8 +410,9 @@ class VideoResNetFeatures(nn.Module):
                                                     False),
                  dtype: torch.dtype = torch.float32,
                  temporal_mode: str = "conv3d", conv_backend: str = "xla",
-                 fwd_lowering: str = "fold"):
+                 fwd_lowering: str = "fold", remat="all"):
         super().__init__()
+        self.remat = _remat_mode(remat)
         # BasicStem: Conv(3→64, (3,7,7), s(1,2,2), p(1,3,3)) + BN + ReLU
         self.stem = _ConvBN(3, 64, (3, 7, 7), (1, 2, 2), (1, 3, 3),
                             dtype=dtype, temporal_mode=temporal_mode,
@@ -318,10 +430,20 @@ class VideoResNetFeatures(nn.Module):
                 width = feats
             setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
 
+    def _remat_stage(self, i: int) -> bool:
+        return (self.remat == "all" or (self.remat == "early" and i < 2)
+                or (self.remat == "layer2" and i == 1))
+
     def forward(self, x):
         x = torch.relu(self.stem(x))
+        remat = self.training and torch.is_grad_enabled()
         for i in range(self.n_stages):
-            x = getattr(self, f"layer{i + 1}")(x)
+            stage = getattr(self, f"layer{i + 1}")
+            if remat and self._remat_stage(i):
+                for block in stage:
+                    x = _rematerialised(block, x)
+            else:
+                x = stage(x)
         return x
 
 
@@ -338,7 +460,7 @@ class ResnetMC3_18(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  layers: Sequence[int] = (2, 2, 2, 2),
                  temporal_mode: str = "conv3d", conv_backend: str = "xla",
-                 fwd_lowering: str = "fold"):
+                 fwd_lowering: str = "fold", remat="all"):
         super().__init__()
         for name, val, known in (
                 ("ct_temporal_mode", temporal_mode, TEMPORAL_MODES),
@@ -364,7 +486,8 @@ class ResnetMC3_18(nn.Module):
                                        True, dtype)
         self.model = VideoResNetFeatures(
             layers=layers, dtype=dtype, temporal_mode=temporal_mode,
-            conv_backend=conv_backend, fwd_lowering=fwd_lowering)
+            conv_backend=conv_backend, fwd_lowering=fwd_lowering,
+            remat=remat)
 
     def forward(self, x):
         return self.model(self.downsampling(x))

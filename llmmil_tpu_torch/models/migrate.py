@@ -19,6 +19,10 @@ are the inverse of ``llmmil_tpu/models/migrate.py``:
 
 The port names its modules by the reference's ``state_dict`` keys, so the
 result has the key names of a reference checkpoint.
+
+The rules are linear, so ``grads_from_flax`` sends a flax *gradient* tree
+(the shape of ``params``) through the same rules to the layout of the
+port's ``.grad`` tensors.
 """
 
 from __future__ import annotations
@@ -228,3 +232,29 @@ def from_flax(variables: Mapping, cfg: Config) -> Dict[str, torch.Tensor]:
         if name in p:
             sd.update(dense(p[name], name + ".1."))
     return sd
+
+
+def _stats_like(params: Mapping) -> Dict:
+    """A ``batch_stats`` tree for ``params``: every BatchNorm (a ``bn``
+    node) gets placeholder ``mean`` / ``var`` leaves of its scale's shape."""
+    out: Dict = {}
+    for k, v in params.items():
+        if not isinstance(v, Mapping):
+            continue
+        if k == "bn":
+            out[k] = {"mean": v["scale"], "var": v["scale"]}
+        else:
+            sub = _stats_like(v)
+            if sub:
+                out[k] = sub
+    return out
+
+
+def grads_from_flax(grads: Mapping, cfg: Config) -> Dict[str, torch.Tensor]:
+    """A flax gradient tree (of ``params``) → ``{parameter name: gradient}``
+    in the port's layout (no BatchNorm buffers)."""
+    p = grads["params"] if "params" in grads else grads
+    sd = from_flax({"params": p, "batch_stats": _stats_like(p)}, cfg)
+    return {k: v for k, v in sd.items()
+            if not k.endswith(("running_mean", "running_var",
+                               "num_batches_tracked"))}

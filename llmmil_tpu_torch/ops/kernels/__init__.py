@@ -4,7 +4,8 @@ The sources are in ``llmmil_tpu_torch/csrc``; ``build.py`` compiles them at
 first use.
 """
 
-from .conv3x3 import conv3x3, conv3x3_plain
+from .conv3x3 import (conv3x3, conv3x3_dgrad, conv3x3_dgrad_plain,
+                      conv3x3_plain, conv3x3_wgrad, conv3x3_wgrad_plain)
 from .mil_pool import mil_pool, mil_pool_plain
 
 
@@ -27,5 +28,6 @@ def resolve_use_kernel(val, raw_bag: bool) -> bool:
     return bool(val)
 
 
-__all__ = ["conv3x3", "conv3x3_plain", "mil_pool", "mil_pool_plain",
-           "resolve_use_kernel"]
+__all__ = ["conv3x3", "conv3x3_dgrad", "conv3x3_dgrad_plain",
+           "conv3x3_plain", "conv3x3_wgrad", "conv3x3_wgrad_plain", "mil_pool",
+           "mil_pool_plain", "resolve_use_kernel"]

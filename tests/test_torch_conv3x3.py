@@ -137,36 +137,61 @@ class _OnTheCard:
 
 @pytest.mark.parametrize("x_grad,w_grad", [(True, False), (False, True)])
 def test_cuda_tensor_that_requires_grad_raises(monkeypatch, x_grad, w_grad):
-    """The backward kernels are not ported: no differentiating through the
-    plain version, and no launch either."""
+    """Where autograd records, a CUDA tensor goes through the autograd
+    Function (forward kernel, backward kernels), never through the plain
+    version; in inference it goes straight to the forward kernel.  Whatever
+    the Function's launch raises reaches the caller."""
     mod = sys.modules["llmmil_tpu_torch.ops.kernels.conv3x3"]
     reached = []
-    monkeypatch.setattr(mod, "_conv3x3_cuda",
-                        lambda *a: reached.append("kernel"))
+
+    def launch(*a):
+        reached.append("kernel")
+        raise RuntimeError("conv3x3: kernel launch failed")
+
+    monkeypatch.setattr(mod, "_launch_fwd", launch)
     monkeypatch.setattr(mod, "conv3x3_plain",
                         lambda *a: reached.append("plain"))
+    real_apply = mod._Conv3x3Function.apply
+    monkeypatch.setattr(mod._Conv3x3Function, "apply",
+                        lambda *a: reached.append("function") or launch(*a))
     x = _OnTheCard((2, 8, 8, 4), x_grad)
     w = _OnTheCard((3, 3, 4, 6), w_grad)
-    with pytest.raises(NotImplementedError, match="Queue 2 rows 2 .* 5"):
+    with pytest.raises(RuntimeError, match="launch failed"):
         conv3x3(x, w)
-    assert reached == []
-    with torch.no_grad():                  # inference: the kernel, no error
-        conv3x3(x, w)
+    assert reached == ["function", "kernel"]
+    reached.clear()
+    with torch.no_grad():                  # inference: the kernel itself
+        with pytest.raises(RuntimeError, match="launch failed"):
+            conv3x3(x, w)
     assert reached == ["kernel"]
+    assert real_apply is not None
 
 
 def test_cuda_tensor_never_takes_the_plain_version():
-    """The wrapper decides by where the tensor lies, nothing else: the
-    source holds no ``try`` and the CUDA branch only launches or raises."""
+    """The wrappers decide by where the tensor lies, nothing else: the
+    source holds no ``try`` and the CUDA branches only launch or raise."""
     src = (PORT / "ops" / "kernels" / "conv3x3.py").read_text()
     assert "try:" not in src and "except" not in src
     body = src.split("def conv3x3(")[1]
-    assert body.index("if x.is_cuda:") < body.index("raise NotImplemented") \
-        < body.index("return _conv3x3_cuda(x, w)") \
+    assert body.index("_Conv3x3Function.apply(x, w)") \
+        < body.index("if x.is_cuda:") \
+        < body.index("return _launch_fwd(x, w, conv3x3)") \
         < body.index("return conv3x3_plain(x, w)")
-    cuda = src.split("def _conv3x3_cuda(")[1].split("def conv3x3(")[0]
-    assert "conv3x3_plain" not in cuda and "F.conv" not in cuda
-    assert cuda.index("raise RuntimeError") < cuda.index("launches += 1")
+    for fn, launch, plain in (
+            ("conv3x3_dgrad", "_launch_fwd(g, _rotated(w), conv3x3_dgrad)",
+             "conv3x3_dgrad_plain"),
+            ("conv3x3_wgrad", "_launch_wgrad(x, dy)", "conv3x3_wgrad_plain")):
+        body = src.split(f"def {fn}(")[1].split("\ndef ")[0]
+        assert body.index("is_cuda:") < body.index(launch) \
+            < body.index(f"return {plain}")
+    function = src.split("class _Conv3x3Function")[1].split("def conv3x3(")[0]
+    assert function.index("if x.is_cuda:") \
+        < function.index("_launch_fwd(x, w, conv3x3)") \
+        < function.index("return conv3x3_plain(x, w)")
+    for launcher in ("_launch_fwd", "_launch_wgrad"):
+        cuda = src.split(f"def {launcher}(")[1].split("\ndef ")[0]
+        assert "_plain" not in cuda and "F.conv" not in cuda
+        assert cuda.index("raise RuntimeError") < cuda.index("launches += 1")
 
 
 def test_kernel_source_calls_no_library():
@@ -176,3 +201,117 @@ def test_kernel_source_calls_no_library():
     assert "mma.sync.aligned.m16n8k16" in cu and 'extern "C" int conv3x3_fwd' in cu
     from llmmil_tpu_torch.ops.kernels import build
     assert build.library_path("conv3x3").name.startswith("libconv3x3_")
+
+
+# ------------------------------------------------------------- backward --
+# The input and weight gradients' plain versions (which a CPU tensor takes,
+# and which the CUDA kernels are held against by chip_smoke.py) against the
+# Pallas kernels the JAX package's custom VJP runs, interpreted, at the
+# cases of tests/test_conv3x3.py: fp32 at 1e-4 (grads), bf16 against the
+# fp32 reference at 0.05 (input rounding only).
+
+from llmmil_tpu.ops.pallas.conv3x3 import _conv_fwd, _conv_wgrad
+from llmmil_tpu_torch.ops.kernels import (conv3x3_dgrad, conv3x3_dgrad_plain,
+                                          conv3x3_wgrad, conv3x3_wgrad_plain)
+
+
+def _rot(k):
+    return jnp.transpose(jnp.asarray(k)[::-1, ::-1], (0, 1, 3, 2))
+
+
+@pytest.mark.parametrize("h,bh", [(16, 4), (16, 16), (10, 4)])
+def test_dgrad_plain_matches_interpreted_pallas_kernel(h, bh):
+    _, k = _data(h=h)
+    g = np.random.RandomState(4).randn(2, h, 16, 4).astype(np.float32)
+    want = _conv_fwd(jnp.asarray(g), _rot(k), block_h=bh, interpret=True)
+    got = conv3x3_dgrad_plain(t(g), t(k))
+    assert got.shape == (2, h, 16, 8)
+    _close(got, want, tol=1e-4)
+    before = conv3x3_dgrad.launches
+    assert torch.equal(conv3x3_dgrad(t(g), t(k)), got)
+    assert conv3x3_dgrad.launches == before       # CPU: no launch
+
+
+@pytest.mark.parametrize("h,bh", [(16, 4), (16, 16), (10, 4)])
+def test_wgrad_plain_matches_interpreted_pallas_kernel(h, bh):
+    x, _ = _data(h=h)
+    dy = np.random.RandomState(5).randn(2, h, 16, 4).astype(np.float32)
+    want = _conv_wgrad(jnp.asarray(x), jnp.asarray(dy), block_h=bh,
+                       interpret=True)
+    got = conv3x3_wgrad_plain(t(x), t(dy))
+    assert got.shape == (3, 3, 8, 4) and got.dtype == torch.float32
+    _close(got, want, tol=1e-4)
+    before = conv3x3_wgrad.launches
+    assert torch.equal(conv3x3_wgrad(t(x), t(dy)), got)
+    assert conv3x3_wgrad.launches == before
+    _close(conv3x3_wgrad_plain(t(x), t(dy), torch.float64), want, tol=1e-4)
+
+
+def test_bf16_gradients_close_to_fp32_reference():
+    x, k = _data(seed=6)
+    dy = np.random.RandomState(7).randn(2, 16, 16, 4).astype(np.float32)
+    want_dx = _conv_fwd(jnp.asarray(dy), _rot(k), interpret=True)
+    want_dw = _conv_wgrad(jnp.asarray(x), jnp.asarray(dy), interpret=True)
+    xb, dyb = t(x).to(torch.bfloat16), t(dy).to(torch.bfloat16)
+    dx = conv3x3_dgrad_plain(dyb, t(k).to(torch.bfloat16))
+    assert dx.dtype == torch.bfloat16
+    _close(dx.float(), want_dx, tol=0.05)
+    np.testing.assert_allclose(n(conv3x3_wgrad_plain(xb, dyb)),
+                               np.asarray(want_dw), rtol=0.05, atol=0.5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_autograd_function_follows_the_jax_custom_vjp(dtype):
+    """conv3x3 under autograd: g cast to x's type before both products,
+    the weight gradient cast to the kernel's type, as
+    ``llmmil_tpu/ops/pallas/conv3x3.py``'s ``_conv3x3_bwd``."""
+    x, k = _data(h=10, seed=8)
+    dy = np.random.RandomState(9).randn(2, 10, 16, 4).astype(np.float32)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+
+    def loss(x_, k_):
+        return jnp.sum(jax_conv3x3(x_, k_, 4, True).astype(jnp.float32) * dy)
+
+    gx, gk = jax.grad(loss, argnums=(0, 1))(jnp.asarray(x, jdt),
+                                            jnp.asarray(k, jdt))
+    xt = t(x).to(dtype).requires_grad_(True)
+    kt = t(k).to(dtype).requires_grad_(True)
+    (conv3x3(xt, kt).float() * t(dy)).sum().backward()
+    assert xt.grad.dtype == kt.grad.dtype == dtype
+    tol = 1e-4 if dtype == torch.float32 else 2 ** -6
+    np.testing.assert_allclose(n(xt.grad.float()), np.asarray(gx, np.float32),
+                               rtol=tol, atol=tol)
+    top = float(np.abs(np.asarray(gk, np.float32)).max())
+    np.testing.assert_allclose(n(kt.grad.float()), np.asarray(gk, np.float32),
+                               rtol=tol, atol=tol * top)
+
+
+def test_backward_takes_only_the_gradients_asked_for(monkeypatch):
+    mod = sys.modules["llmmil_tpu_torch.ops.kernels.conv3x3"]
+    called = []
+    for name in ("conv3x3_dgrad", "conv3x3_wgrad"):
+        real = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _n=name, _r=real: (
+            called.append(_n), _r(*a))[1])
+    x, k = _data(h=6)
+    xt = t(x).requires_grad_(True)
+    conv3x3(xt, t(k)).sum().backward()
+    assert called == ["conv3x3_dgrad"]
+    called.clear()
+    kt = t(k).requires_grad_(True)
+    conv3x3(t(x), kt).sum().backward()
+    assert called == ["conv3x3_wgrad"]
+
+
+def test_wgrad_source_has_no_float_atomics():
+    cu = (PORT / "csrc" / "conv3x3_wgrad.cu").read_text()
+    for lib in ("cudnn", "cublas", "cutlass", "torch/"):
+        assert lib not in cu.lower(), lib
+    assert "atomicAdd" not in cu
+    assert "ldmatrix.sync.aligned.m8n8.x4.trans" in cu \
+        and "mma.sync.aligned.m16n8k16" in cu
+    assert 'extern "C" int conv3x3_wgrad(' in cu \
+        and 'extern "C" int conv3x3_wgrad_splits(' in cu
+    from llmmil_tpu_torch.ops.kernels import build
+    assert build.library_path("conv3x3_wgrad").name.startswith(
+        "libconv3x3_wgrad_")

@@ -139,8 +139,37 @@ def test_batchnorm_matches_flax_and_refuses_training():
         got = bn(t(x).to(dtype))
         assert got.dtype == dtype
         _close(got.float(), np.asarray(want, np.float32), rtol=tol, atol=tol)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        bn.train()(t(x))
+    # training mode: batch statistics, flax's running update (biased
+    # variance, momentum 0.9), gradients of x, scale and bias; the same
+    # numbers in fp32 up to the order of the sums
+    dy = np.random.RandomState(2).randn(*x.shape).astype(np.float32)
+    jbn = nn.BatchNorm(use_running_average=False, momentum=0.9, epsilon=1e-5)
+
+    def jloss(params, xx):
+        y, upd = jbn.apply({"params": params,
+                            "batch_stats": variables["batch_stats"]}, xx,
+                           mutable=["batch_stats"])
+        return jnp.sum(y * dy), (y, upd["batch_stats"])
+
+    import jax
+    (gp, gx), (want, stats) = jax.grad(jloss, argnums=(0, 1), has_aux=True)(
+        variables["params"], jnp.asarray(x))
+    bn = load(ct.BatchNorm(6), sd).train()
+    xt = t(x).requires_grad_(True)
+    got = bn(xt)
+    (got * t(dy)).sum().backward()
+    _close(got, want, rtol=1e-5, atol=1e-5)
+    _close(bn.running_mean, stats["mean"], rtol=1e-5, atol=1e-6)
+    _close(bn.running_var, stats["var"], rtol=1e-5, atol=1e-6)
+    _close(xt.grad, gx, rtol=1e-4, atol=1e-5)
+    _close(bn.weight.grad, gp["scale"], rtol=1e-4, atol=1e-5)
+    _close(bn.bias.grad, gp["bias"], rtol=1e-4, atol=1e-5)
+    # update_stats off (a rematerialised block's second forward): the same
+    # output, running statistics untouched
+    bn.update_stats = False
+    before = bn.running_var.clone()
+    assert torch.equal(bn(t(x)), got.detach()) \
+        and torch.equal(bn.running_var, before)
 
 
 def _trunk_pair(spacing_xy, layers, mode, backend="xla", lowering="fold",
@@ -318,3 +347,87 @@ def test_ct_extractor_reads_the_config(model_ct, cin):
     assert not mod.model.stem[0].use_kernel
     assert not mod.downsampling.use_kernel
     assert isinstance(mod.model.layer2[0].conv1[0], ct.Conv3d)
+
+
+# -------------------------------------------------------------- training --
+
+@pytest.fixture
+def centred_flax_variance(monkeypatch):
+    """flax's BatchNorm takes E[x²] − E[x]², which loses most of fp32's
+    digits where a channel's mean is large against its spread (the maps
+    after a ReLU), and its gradient with them; the port's is the centred
+    variance.  The JAX side computes that here (tests/test_torch_train.py
+    measures the difference)."""
+    from flax.linen import normalization
+    real = normalization._compute_stats
+    monkeypatch.setattr(normalization, "_compute_stats",
+                        lambda *a, **k: real(*a, **dict(
+                            k, use_fast_variance=False)))
+
+
+@pytest.mark.parametrize("backend,remat", [("pallas", "all")])
+def test_trunk_training_vjp_matches_flax(centred_flax_variance, backend,
+                                         remat):
+    """The trunk in training mode, one upstream gradient: every parameter's
+    gradient and the running statistics after the step, as flax.  The
+    JAX package's convolution gradients on the CPU and the port's differ
+    by ~1e-5 of a tensor's largest value: atol 1e-4 of it."""
+    import jax
+    x = np.random.RandomState(0).rand(2, 6, 16, 16, 1).astype(np.float32)
+    jmod = jct.ResnetMC3_18(
+        spacing_xy=2.0, remat=False, layers=(1, 1, 1, 1),
+        temporal_mode="dfold",
+        conv_backend="pallas_interpret" if backend == "pallas" else backend)
+    variables = ct_variables(numpy_variables(jmod, jnp.asarray(x)))
+    shape = jax.eval_shape(jmod.apply, variables, jnp.asarray(x)).shape
+    dy = np.random.RandomState(1).randn(*shape).astype(np.float32)
+
+    def loss(params):
+        y, upd = jmod.apply({"params": params,
+                             "batch_stats": variables["batch_stats"]},
+                            jnp.asarray(x), train=True,
+                            mutable=["batch_stats"])
+        return jnp.sum(y * dy), upd["batch_stats"]
+
+    grads, stats = jax.jit(jax.grad(loss, has_aux=True))(
+        variables["params"])
+    mod = load(ct.ResnetMC3_18(1, 2.0, torch.float32, (1, 1, 1, 1), "dfold",
+                               backend, "fold", remat),
+               migrate.resnet_mc3(variables["params"],
+                                  variables["batch_stats"], "")).train()
+    (mod(t(x)) * t(dy)).sum().backward()
+    want = migrate.resnet_mc3(grads, migrate._stats_like(grads), "")
+    for k, p in mod.named_parameters():
+        top = float(np.abs(n(want[k])).max())
+        _close(p.grad, want[k], rtol=1e-4, atol=1e-4 * top)
+    moved = migrate.resnet_mc3(variables["params"], stats, "")
+    for k, v in mod.state_dict().items():
+        if "running_" in k:
+            _close(v, moved[k], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("case", ["layer1", "strided"])
+def test_conv3d_fwd_lowering_gradients_match_flax(case):
+    """``fwd_lowering='conv3d'``: a 3-D convolution forward whose gradients
+    are the fold form's, as the JAX package's custom VJP."""
+    import jax
+    kernel, stride, padding = CASES[case]
+    x = np.random.RandomState(2).randn(2, 9, 12, 12, 8).astype(np.float32)
+    jmod = jct.DepthFoldedConv(6, kernel, stride, padding, mode="dfold",
+                               use_bias=True, fwd_lowering="conv3d")
+    variables = numpy_variables(jmod, jnp.asarray(x), seed=3)
+    shape = jmod.apply(variables, jnp.asarray(x)).shape
+    dy = np.random.RandomState(4).randn(*shape).astype(np.float32)
+    gp, gx = jax.grad(lambda p, xx: jnp.sum(jmod.apply({"params": p}, xx)
+                                            * dy), argnums=(0, 1))(
+        variables["params"], jnp.asarray(x))
+    mod = load(ct.DepthFoldedConv(8, 6, kernel, stride, padding,
+                                  mode="dfold", use_bias=True,
+                                  fwd_lowering="conv3d"),
+               migrate.conv(variables["params"], "")).train()
+    xt = t(x).requires_grad_(True)
+    (mod(xt) * t(dy)).sum().backward()
+    want = migrate.conv(gp, "")
+    _close(xt.grad, gx, rtol=1e-4, atol=1e-5)
+    _close(mod.weight.grad, want["weight"], rtol=1e-4, atol=1e-4)
+    _close(mod.bias.grad, want["bias"], rtol=1e-4, atol=1e-4)

@@ -1,7 +1,8 @@
 """Rules the PyTorch port keeps as a package: it imports nothing of JAX or of
-the JAX package, its build directory is git-ignored, its entry points want a
-CUDA card unless the caller names the CPU, and the configuration and bag
-helpers it copied agree with the JAX package's."""
+the JAX package, nor the packages its card's installation lacks (optax,
+pandas, regex, sklearn); its build directory is git-ignored, its entry
+points want a CUDA card unless the caller names the CPU, and the
+configuration and bag helpers it copied agree with the JAX package's."""
 
 import dataclasses
 import re
@@ -17,8 +18,9 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "llmmil_tpu_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = re.compile(
-    r"^\s*(import\s+(jax|flax|llmmil_tpu)\b(?!_)"
-    r"|from\s+(jax|flax|llmmil_tpu)(\.[\w.]*)?\s+import)", re.M)
+    r"^\s*(import\s+(jax|flax|optax|pandas|regex|sklearn|llmmil_tpu)\b(?!_)"
+    r"|from\s+(jax|flax|optax|pandas|regex|sklearn|llmmil_tpu)(\.[\w.]*)?"
+    r"\s+import)", re.M)
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -31,11 +33,14 @@ def test_forbidden_pattern_catches_what_it_should():
     for bad in ("import jax", "import jax.numpy as jnp", "from jax import x",
                 "from flax import linen", "  import flax.linen as nn",
                 "from llmmil_tpu.config import Config", "import llmmil_tpu",
-                "from llmmil_tpu import Config"):
+                "from llmmil_tpu import Config", "import optax",
+                "import pandas as pd", "    import regex as re",
+                "from sklearn.model_selection import KFold"):
         assert FORBIDDEN.search(bad), bad
     for ok in ("from llmmil_tpu_torch import Config",
                "import llmmil_tpu_torch.ops", "from .config import Config",
-               "# import jax would be wrong here"):
+               "# import jax would be wrong here", "import re",
+               "from .train import optim"):
         assert not FORBIDDEN.search(ok), ok
 
 
@@ -48,7 +53,8 @@ def test_importing_the_port_loads_no_jax():
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'llmmil_tpu', 'triton')]\n"
+            "('jax', 'flax', 'llmmil_tpu', 'triton', 'optax', 'pandas', "
+            "'regex', 'sklearn')]\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
@@ -61,6 +67,7 @@ def test_gitignore_lists_the_build_directory():
     assert build.BUILD_DIR == PORT / "ops" / "kernels" / "_build"
     assert (build.CSRC_DIR / "mil_pool.cu").is_file()
     assert (build.CSRC_DIR / "conv3x3.cu").is_file()
+    assert (build.CSRC_DIR / "conv3x3_wgrad.cu").is_file()
 
 
 def test_library_path_is_keyed_by_the_source():
