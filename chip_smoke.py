@@ -5,8 +5,10 @@ Hopper card: ``python3 chip_smoke.py``.
 It builds the port's CUDA kernels from the sources in the checkout, holds
 each kernel against its plain PyTorch version on the card, drives the port's
 main paths — the pathology + clinical-information flagship and the tri-modal
-flagship with its CT trunk, each at full width, built, called and served over
-HTTP — and checks that the paths went through the kernels.  Any failed phase
+flagship with its CT trunk under ABMIL and under TransMIL (the paper's
+default), each at full width, built, called and served over HTTP; training
+the tri-modal flagship; the conv3x3 bench entry point in every mode — and
+checks that the paths went through the kernels.  Any failed phase
 ends the run with a non-zero exit; without a CUDA card it exits non-zero at
 once.  The weights are random, made from a seed.  Phases:
 
@@ -21,6 +23,11 @@ once.  The weights are random, made from a seed.  Phases:
   kernels-bwd  conv3x3's input and weight gradients against their plain
             versions (the weight gradient against an fp64 sum), run to run
             bits of the weight gradient, and cuDNN's backward for scale
+  kernels-modes  conv3x3's patch and tout kernels (forward and input
+            gradient) and the tout weight gradient against their plain
+            versions at the path's shape and three ragged ones, both types;
+            run to run bits of the weight gradient; taps kernels and cuDNN
+            for scale
   train     fit() on the synthetic full-width cohort (one 160 x 512 x 512
             volume and one 8192-bucket bag a patient, batch 2), one epoch
             and its validation; launches a step; a mid-epoch checkpoint
@@ -28,6 +35,15 @@ once.  The weights are random, made from a seed.  Phases:
             1 on the conv3x3 route against the stock route, fp32 and bf16,
             and one layer1 convolution of a step on each route held against
             the plain versions on its own operands (dk against an fp64 sum)
+  model-transmil  the tri-modal flagship with aggregator TransMIL on one
+            160 x 512 x 512 volume: conv3x3 kernel route against the stock
+            route, same type; mask-leak probe
+  serve-transmil  that flagship exported and served over HTTP; pathology-
+            only TransMIL at 1 x 16384 rows served, fp32 on the card held
+            against the CPU
+  bench-conv3x3  python -m llmmil_tpu_torch.eval.bench_conv3x3 in a
+            subprocess at the path's shape: exit code, every mode's parity
+            line and time row, the launch counts of the patch and tout kernels
   last      one JSON line for the kernels, the card, {"ok": true, ...}
 """
 
@@ -56,9 +72,14 @@ from llmmil_tpu_torch.data import BatchLoader, SyntheticCohort
 from llmmil_tpu_torch.models import build_model
 from llmmil_tpu_torch.models.abmil import ABMIL
 from llmmil_tpu_torch.ops.kernels import (build, conv3x3, conv3x3_dgrad,
-                                          conv3x3_dgrad_plain, conv3x3_plain,
-                                          conv3x3_wgrad, conv3x3_wgrad_plain,
-                                          mil_pool, mil_pool_plain)
+                                          conv3x3_dgrad_plain, conv3x3_fwd,
+                                          conv3x3_patch, conv3x3_patch_plain,
+                                          conv3x3_plain, conv3x3_tout,
+                                          conv3x3_tout_plain, conv3x3_wgrad,
+                                          conv3x3_wgrad_plain,
+                                          conv3x3_wgrad_tout,
+                                          conv3x3_wgrad_tout_plain, mil_pool,
+                                          mil_pool_plain)
 from llmmil_tpu_torch.parallel import ShardedEpochSampler, place_batch
 from llmmil_tpu_torch.train import checkpoint as ckpt
 from llmmil_tpu_torch.train import create_train_state, make_train_step
@@ -477,6 +498,117 @@ def conv_bwd_phase():
     return rows
 
 
+# ---------------------------------------------------------- kernels-modes --
+# conv3x3's patch and tout kernels, forward and input gradient, and the tout
+# weight gradient, against their plain versions: at MC3 layer1's shape (the
+# forward at (160,128,128,192)->64, the input gradient at (160,128,128,64)
+# ->192) and at three ragged shapes in both types; the taps kernels and
+# cuDNN beside them for scale.  Tolerances as for the taps kernels, for the
+# same reasons: CONV_TOL for the forward and the input gradient (the same
+# rounded inputs, exact products, fp32 sums in another order), WGRAD_TOL of
+# an fp64 sum of the same operands for the weight gradient.
+MODE_SHAPES = [             # (N, H, W, C, F, dtype)
+    (160, 128, 128, 192, 64, torch.bfloat16),   # MC3 layer1, dfold: the path
+    (2, 33, 31, 20, 70, torch.bfloat16),        # ragged everywhere
+    (2, 33, 31, 20, 70, torch.float32),
+    (3, 17, 13, 24, 40, torch.bfloat16),
+    (3, 17, 13, 24, 40, torch.float32),
+    (2, 10, 16, 8, 4, torch.bfloat16),
+    (2, 10, 16, 8, 4, torch.float32),
+]
+MODE_PLAIN = {"patch": conv3x3_patch_plain, "tout": conv3x3_tout_plain}
+
+
+def modes_phase():
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 8)
+    rows = []
+    for shape in MODE_SHAPES:
+        n, h, w, c, f, dtype = shape
+        name = f"{n}x{h}x{w}x{c}->{f} {str(dtype).split('.')[-1]}"
+        x = torch.randn(n, h, w, c, generator=gen, device=DEV).to(dtype)
+        g = torch.randn(n, h, w, f, generator=gen, device=DEV).to(dtype)
+        kt = (torch.randn(3, 3, c, f, generator=gen, device=DEV)
+              * (9 * c) ** -0.5).to(dtype)
+        k_rot = kt.flip((0, 1)).transpose(2, 3)      # the input gradient's
+        big = n * h * w * c * f >= 1 << 28
+        it, pit = (10, 2) if big else (50, 10)
+        row = {"shape": name}
+        for op, a, k in (("fwd", x, kt), ("dgrad", g, k_rot)):
+            for mode, plain in MODE_PLAIN.items():
+                y = conv3x3_fwd(a, k, mode)
+                torch.cuda.synchronize()
+                ref = plain(a, k)
+                check(y.shape == ref.shape and y.dtype == dtype
+                      and y.is_contiguous() and bool(torch.isfinite(y).all()),
+                      f"conv3x3 {op} {mode}: wrong or non-finite output at "
+                      f"{name}")
+                err = float((y.float() - ref.float()).abs().max())
+                tol = CONV_TOL[dtype] * float(ref.float().abs().max())
+                check(err <= tol, f"conv3x3 {op} {mode} disagrees with its "
+                      f"plain version at {name}: {err} > {tol}")
+                del y, ref
+                row[f"{op}_{mode}"] = {
+                    "err": err, "tol": tol,
+                    "ms": time_ms(lambda: conv3x3_fwd(a, k, mode), it),
+                    "plain_ms": time_ms(lambda: plain(a, k), pit, warmup=1)}
+            row[f"{op}_taps_ms"] = time_ms(lambda: conv3x3_fwd(a, k), it)
+            row[f"{op}_library_ms"] = time_ms(
+                (lambda: conv2d_library(x, kt)) if op == "fwd" else
+                (lambda: conv_bwd_library(x, g, kt, "dgrad")), it)
+            bound, by = (conv3x3_bound_ms(shape) if op == "fwd"
+                         else conv_bwd_bound_ms(shape, "dgrad"))
+            row[f"{op}_bound_ms"], row[f"{op}_bound_by"] = bound, by
+        dw = conv3x3_wgrad(x, g, "tout")
+        again = conv3x3_wgrad(x, g, "tout")
+        torch.cuda.synchronize()
+        same_bits = torch.equal(dw, again)
+        check(same_bits, f"conv3x3_wgrad_tout: two runs differ at {name}")
+        ref64 = conv3x3_wgrad_tout_plain(x, g, torch.float64)
+        check(dw.shape == (3, 3, c, f) and dw.dtype == torch.float32
+              and bool(torch.isfinite(dw).all()),
+              f"conv3x3_wgrad_tout: wrong or non-finite output at {name}")
+        w_err = float((dw.double() - ref64).abs().max())
+        w_tol = WGRAD_TOL * float(ref64.abs().max())
+        check(w_err <= w_tol, f"conv3x3_wgrad_tout disagrees with the fp64 "
+              f"sum at {name}: {w_err} > {w_tol}")
+        del dw, again, ref64
+        bound, by = conv_bwd_bound_ms(shape, "wgrad")
+        row["wgrad_tout"] = {
+            "err": w_err, "tol": w_tol, "same_bits": same_bits,
+            "ms": time_ms(lambda: conv3x3_wgrad(x, g, "tout"), it),
+            "plain_ms": time_ms(lambda: conv3x3_wgrad_tout_plain(x, g), pit,
+                                warmup=1),
+            "taps_ms": time_ms(lambda: conv3x3_wgrad(x, g), it),
+            "library_ms": time_ms(
+                lambda: conv_bwd_library(x, g, kt, "wgrad"), it),
+            "bound_ms": bound, "bound_by": by}
+        rows.append(row)
+        del x, g
+        torch.cuda.empty_cache()
+    return rows
+
+
+def print_modes(rows):
+    for r in rows:
+        parts = []
+        for op in ("fwd", "dgrad"):
+            parts.append(" ".join(
+                f"{op} {m} err {r[f'{op}_{m}']['err']:.2e} (tol "
+                f"{r[f'{op}_{m}']['tol']:.2e}) ms {r[f'{op}_{m}']['ms']:.4f} "
+                f"plain_ms {r[f'{op}_{m}']['plain_ms']:.4f}"
+                for m in MODE_PLAIN) + f" taps_ms {r[f'{op}_taps_ms']:.4f} "
+                f"cuDNN_ms {r[f'{op}_library_ms']:.4f} bound_ms "
+                f"{r[f'{op}_bound_ms']:.4f} ({r[f'{op}_bound_by']})")
+        wt = r["wgrad_tout"]
+        parts.append(f"wgrad tout err vs fp64 {wt['err']:.2e} (tol "
+                     f"{wt['tol']:.2e}) same bits twice {wt['same_bits']} ms "
+                     f"{wt['ms']:.4f} plain_ms {wt['plain_ms']:.4f} taps_ms "
+                     f"{wt['taps_ms']:.4f} cuDNN_ms {wt['library_ms']:.4f} "
+                     f"bound_ms {wt['bound_ms']:.4f} ({wt['bound_by']})")
+        print(f"[kernels-modes] {r['shape']}: " + " | ".join(parts),
+              flush=True)
+
+
 # ------------------------------------------------------------------ model --
 
 def flagship_cfg(model_ci):
@@ -730,7 +862,9 @@ def model_ct_phase():
     return lines, to_serve
 
 
-def serve_ct_phase(cfg, model):
+def serve_ct_phase(cfg, model, pools=3):
+    """Serve a tri-modal flagship; a request launches conv3x3 4 times and
+    mil_pool ``pools`` times (3 under ABMIL, 0 under TransMIL)."""
     rs = np.random.RandomState(SEED + 4)
     blob = export_model(cfg, model.state_dict(),
                         [make_example_batch(cfg, 1, bag=CT_BAG,
@@ -748,9 +882,9 @@ def serve_ct_phase(cfg, model):
             client_ms = (time.perf_counter() - t0) * 1e3
             check(code == 200, f"/predict (CT) answered {code}")
             check(conv3x3.launches == before[0] + 4
-                  and mil_pool.launches == before[1] + 3,
-                  "/predict (CT) did not launch conv3x3 4 times and "
-                  "mil_pool 3 times")
+                  and mil_pool.launches == before[1] + pools,
+                  f"/predict (CT) did not launch conv3x3 4 times and "
+                  f"mil_pool {pools} times")
             got = np.asarray(out["probs"], np.float32)
             check(got.shape == (1, cfg.num_classes)
                   and bool(np.isfinite(got).all()), "/predict (CT): bad probs")
@@ -829,16 +963,25 @@ def serve_phase(cfg, model):
 
 # ------------------------------------------------------------------ train --
 
+# every kernel's wrapper, by the name of its row in the kernels line
+WRAPPERS = {"mil_pool_fwd": mil_pool, "conv3x3_fwd": conv3x3,
+            "conv3x3_dgrad": conv3x3_dgrad, "conv3x3_wgrad": conv3x3_wgrad,
+            "conv3x3_patch": conv3x3_patch, "conv3x3_tout": conv3x3_tout,
+            "conv3x3_wgrad_tout": conv3x3_wgrad_tout}
+
+
 def counts():
-    return {"conv3x3_fwd": conv3x3.launches,
-            "conv3x3_dgrad": conv3x3_dgrad.launches,
-            "conv3x3_wgrad": conv3x3_wgrad.launches,
-            "mil_pool_fwd": mil_pool.launches}
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
 def zero_counts():
-    conv3x3.launches = conv3x3_dgrad.launches = 0
-    conv3x3_wgrad.launches = mil_pool.launches = 0
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+
+
+def only(**launches):
+    """Expected counts: these, every other kernel 0."""
+    return {name: launches.get(name, 0) for name in WRAPPERS}
 
 
 def train_cfg(dtype="bfloat16", backend="pallas", batch=TRAIN_BATCH,
@@ -868,8 +1011,8 @@ def step_launches(remat):
     rematerialised; each has an input and a weight gradient; one mil_pool a
     head (its backward recomputes through the plain version)."""
     fwd = 8 if remat in ("all", "early") else 4
-    return {"conv3x3_fwd": fwd, "conv3x3_dgrad": 4, "conv3x3_wgrad": 4,
-            "mil_pool_fwd": 3}
+    return only(conv3x3_fwd=fwd, conv3x3_dgrad=4, conv3x3_wgrad=4,
+                mil_pool_fwd=3)
 
 
 def fit_phase(workdir):
@@ -1069,8 +1212,7 @@ def route_step_phase(host_batch):
             peak_gb = torch.cuda.max_memory_allocated() / 1e9
             launched = counts()
             want = (step_launches("layer2") if backend == "pallas" else
-                    {"conv3x3_fwd": 0, "conv3x3_dgrad": 0,
-                     "conv3x3_wgrad": 0, "mil_pool_fwd": 3})
+                    only(mil_pool_fwd=3))
             check(launched == want, f"train step {dtype} {backend}: launches "
                   f"{launched}, expected {want}")
             times = []
@@ -1159,6 +1301,177 @@ def train_phase():
     return lines + route_lines, launched, route_rows
 
 
+# --------------------------------------------------------- model-transmil --
+# The paper's default flagship: aggregator and model_pathology TransMIL, the
+# configuration of tests/test_golden.py at published widths (MC3-18, CLIP
+# text tower 49408 / 77 / 512 / 8 heads / 12 layers with ten prompts, TwoWay
+# depth 2, three heads), bf16.  Its pooling runs no kernel (Nyström attention
+# is plain products); its trunk runs conv3x3 four times a forward.  Routes
+# held as the ABMIL flagship's are, to CT_TOL: the heads of the conv3x3 route
+# against the stock route in the same type.  Pathology-only TransMIL in fp32
+# on the card against the same module on the CPU: only the order of sums
+# differs -> PATH_TRANSMIL_ATOL on probabilities.
+PATH_TRANSMIL_ATOL = 1e-4
+PATH_TRANSMIL_BAG = 16384
+
+
+def transmil_cfg(modality, dtype="bfloat16", backend="pallas"):
+    return ct_cfg(modality, dtype, backend).replace(
+        model_pathology="TransMIL", aggregator="TransMIL")
+
+
+def model_transmil_phase():
+    rs = np.random.RandomState(SEED + 9)
+    heads = ("probs", "probs_CT", "probs_Pth")
+    modality = ["CT", "pathology"]
+    tensors = to_device(ct_batch(transmil_cfg(modality), rs))
+    lines, weights, to_serve = [], None, None
+    for dtype in ("bfloat16", "float32"):
+        what = f"tri-modal TransMIL {dtype}"
+        cfg = transmil_cfg(modality, dtype)
+        model = build_model(cfg)
+        if weights is None:
+            weights = model.state_dict()
+        else:
+            model.load_state_dict(weights)
+        stock = build_model(transmil_cfg(modality, dtype, "xla"))
+        stock.load_state_dict(weights)
+        torch.cuda.reset_peak_memory_stats()
+        out = ct_forward_checked(model, tensors, what, 0)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        launched = conv3x3.launches
+        with torch.inference_mode():
+            want = stock(tensors)
+        check(conv3x3.launches == launched,
+              f"{what}: the stock route launched conv3x3")
+        tol = CT_TOL[dtype]["probs_abs"]
+        errs = []
+        for head in heads:
+            check(tuple(out[head].shape) == (1, cfg.num_classes)
+                  and bool(torch.isfinite(out[head]).all()),
+                  f"{what}: {head} not finite or of the wrong shape")
+            errs.append(float((out[head].float() - want[head].float()
+                               ).abs().max()))
+        check(max(errs) <= tol, f"{what}: heads of the kernel route are "
+              f"{errs} from the stock route's (tolerance {tol})")
+        leak = ""
+        if dtype == "bfloat16":
+            to_serve = (cfg, model)
+            for garbage in (1e3, float("nan")):
+                dirty = tensors["input_pathology"].clone()
+                dirty[~tensors["mask_pathology"]] = garbage
+                leaked = ct_forward_checked(
+                    model, dict(tensors, input_pathology=dirty), what, 0)
+                check(all(torch.equal(leaked[h], out[h]) for h in heads),
+                      f"{what}: {garbage} in masked rows changed the heads")
+                del dirty, leaked
+            leak = "; 1e3 and NaN in masked rows: heads bit-identical"
+        with torch.inference_mode():
+            fwd_ms = time_ms(lambda: model(tensors), 3, warmup=1)
+            stock_ms = time_ms(lambda: stock(tensors), 3, warmup=1)
+        lines.append(f"{what}: heads_err {max(errs):.2e} (tol {tol}) "
+                     f"probs {out['probs'].float().cpu().numpy().tolist()} "
+                     f"fwd_ms {fwd_ms:.2f} fwd_ms_stock_route {stock_ms:.2f} "
+                     f"peak_GB {peak_gb:.2f}{leak}")
+        if dtype != "bfloat16":
+            del model
+        del stock, out, want
+        torch.cuda.empty_cache()
+    del tensors
+    return lines, to_serve
+
+
+def serve_transmil_pathology():
+    """Pathology-only TransMIL (CLIP prompts) at 1 x 16384 rows: exported,
+    served over HTTP, each answer the module's; the same module in fp32 on
+    the card against the CPU."""
+    rs = np.random.RandomState(SEED + 10)
+    cfg = flagship_cfg("CLIP").replace(model_pathology="TransMIL",
+                                       aggregator="TransMIL")
+    model = build_model(cfg)
+    bag = PATH_TRANSMIL_BAG
+    served = ServingModel(export_model(cfg, model.state_dict(),
+                                       [make_example_batch(cfg, 1, bag=bag)]))
+    lines = []
+    with InferenceServer(served, host="127.0.0.1", port=0) as srv:
+        base = f"http://127.0.0.1:{srv.port}"
+        for _ in range(2):
+            host = ragged_batch(cfg, 1, bag, rs)
+            before = counts()
+            code, out = post(f"{base}/predict", host)
+            check(code == 200, f"/predict (TransMIL) answered {code}")
+            check(counts() == before,
+                  "/predict (pathology TransMIL) launched a kernel")
+            got = np.asarray(out["probs"], np.float32)
+            check(got.shape == (1, cfg.num_classes)
+                  and bool(np.isfinite(got).all()),
+                  "/predict (TransMIL): bad probs")
+            with torch.inference_mode():
+                direct = model(to_device(host))["probs"].float().cpu().numpy()
+            check(np.array_equal(got, direct),
+                  "/predict (TransMIL) differs from the module called "
+                  "directly")
+            lines.append(f"pathology TransMIL 1x{bag} device_ms="
+                         f"{out['device_ms']}")
+    tensors = to_device(host)
+    with torch.inference_mode():
+        fwd_ms = time_ms(lambda: model(tensors), 5, warmup=1)
+    fp32 = build_model(cfg.replace(compute_dtype="float32"))
+    fp32.load_state_dict(model.state_dict())
+    cpu = build_model(cfg.replace(compute_dtype="float32"), device="cpu")
+    cpu.load_state_dict(model.state_dict())
+    with torch.inference_mode():
+        on_card = fp32(tensors)["probs"].cpu()
+        on_cpu = cpu({k: torch.from_numpy(v) for k, v in host.items()}
+                     )["probs"]
+    err = float((on_card - on_cpu).abs().max())
+    check(bool(torch.isfinite(on_card).all()) and err <= PATH_TRANSMIL_ATOL,
+          f"pathology TransMIL fp32: card {on_card.tolist()} against CPU "
+          f"{on_cpu.tolist()} (tolerance {PATH_TRANSMIL_ATOL})")
+    bf16_err = float((torch.from_numpy(direct) - on_cpu).abs().max())
+    lines.append(f"pathology TransMIL 1x{bag} bf16 fwd_ms {fwd_ms:.2f}; fp32 "
+                 f"card vs CPU {err:.2e} (tol {PATH_TRANSMIL_ATOL}); bf16 vs "
+                 f"fp32 CPU {bf16_err:.2e} (read, not held)")
+    return lines
+
+
+# ---------------------------------------------------------- bench-conv3x3 --
+
+BENCH_TIMEOUT_S = 600
+
+
+def bench_phase():
+    """The conv3x3 bench entry point at the path's shape, few iterations, in
+    a process of its own: it must exit 0 with every mode's parity lines and
+    time rows; its last line carries its kernels' launch counts."""
+    modes, wgrad_modes = ("taps", "patch", "tout"), ("taps", "tout")
+    cmd = [sys.executable, "-m", "llmmil_tpu_torch.eval.bench_conv3x3",
+           "--iters", "3", "--reps", "2", "--modes", ",".join(modes)]
+    t0 = time.time()
+    proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(
+        __file__)), capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        if line.strip():
+            print(f"[bench-conv3x3] {line}", flush=True)
+    check(proc.returncode == 0, f"bench_conv3x3 exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    want = [f"parity {m}: fwd" for m in modes] + \
+        [f"parity {m}: dx" for m in modes] + \
+        [f"parity wgrad {m}: dw" for m in wgrad_modes] + \
+        [f"kernel fwd {m} " for m in modes] + \
+        [f"kernel dgrad {m} " for m in modes] + \
+        [f"kernel wgrad {m} " for m in wgrad_modes] + \
+        ["library fwd", "library dgrad", "library wgrad"]
+    missing = [w for w in want if not any(
+        line.startswith(w) and "FAILED" not in line for line in lines)]
+    check(not missing, f"bench_conv3x3: rows missing or failed: {missing}")
+    last = json.loads(lines[-1])
+    check(not last["failed"], f"bench_conv3x3: failed rows {last['failed']}")
+    launched = {name: last["launches"].get(name, 0) for name in WRAPPERS}
+    return launched, time.time() - t0
+
+
 # ------------------------------------------------------------------- main --
 
 def main():
@@ -1182,8 +1495,9 @@ def main():
           flush=True)
 
     t0 = time.time()
-    names = ("mil_pool", "conv3x3", "conv3x3_wgrad")   # one nvcc each,
-    # all started together
+    names = ("mil_pool", "conv3x3", "conv3x3_wgrad", "conv3x3_patch",
+             "conv3x3_tout", "conv3x3_wgrad_tout")   # one nvcc each, all
+    # started together
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         libs = list(pool.map(
             lambda name: build.build_library(name, verbose=True), names))
@@ -1226,6 +1540,9 @@ def main():
               f"{r['wgrad_bound_ms']:.4f} ({r['wgrad_bound_by']})",
               flush=True)
     bwd_compared = counts()
+    mode_rows = modes_phase()
+    print_modes(mode_rows)
+    modes_compared = counts()
 
     # the main paths: every count to 0 just before, read just after
     zero_counts()
@@ -1258,8 +1575,37 @@ def main():
     for k in ("conv3x3_fwd", "conv3x3_dgrad", "conv3x3_wgrad",
               "mil_pool_fwd"):
         check(train_launched[k] > 0, f"the training path never launched {k}")
-    launched = {k: serve_launched[k] + train_launched[k]
-                for k in serve_launched}
+    # the paper's default flagship, TransMIL, served
+    zero_counts()
+    tm_lines, (cfg, model) = model_transmil_phase()
+    for line in tm_lines:
+        print(f"[model-transmil] {line}", flush=True)
+    tm_serve_lines = serve_ct_phase(cfg, model, pools=0)
+    del model
+    torch.cuda.empty_cache()
+    tm_serve_lines += serve_transmil_pathology()
+    print(f"[serve-transmil] {'; '.join(tm_serve_lines)}", flush=True)
+    transmil_launched = counts()
+    check(transmil_launched == only(
+        conv3x3_fwd=transmil_launched["conv3x3_fwd"])
+        and transmil_launched["conv3x3_fwd"] >= 4,
+        f"the TransMIL paths launched {transmil_launched}: conv3x3's forward "
+        "kernel and nothing else")
+    torch.cuda.empty_cache()
+
+    # the conv3x3 bench entry point, in a process of its own (its counts
+    # start at 0 there and come back on its last line)
+    bench_launched, bench_s = bench_phase()
+    print(f"[bench-conv3x3] {bench_s:.1f} s, launches {bench_launched}",
+          flush=True)
+    for k in ("conv3x3_fwd", "conv3x3_dgrad", "conv3x3_wgrad",
+              "conv3x3_patch", "conv3x3_tout", "conv3x3_wgrad_tout"):
+        check(bench_launched[k] > 0, f"the bench entry point never launched "
+              f"{k}")
+
+    by_path = {"serve": serve_launched, "train": train_launched,
+               "transmil": transmil_launched, "bench": bench_launched}
+    launched = {k: sum(p[k] for p in by_path.values()) for k in WRAPPERS}
     launches = launched["mil_pool_fwd"]
     conv_launches = launched["conv3x3_fwd"]
 
@@ -1311,12 +1657,49 @@ def main():
             "shapes": [{k: v for k, v in r.items()
                         if k == "shape" or k.startswith(which)}
                        for r in bwd_rows]})
+    path_row = mode_rows[0]
+    for name, source, replaces, key in (
+            ("conv3x3_patch", "llmmil_tpu_torch/csrc/conv3x3_patch.cu",
+             "llmmil_tpu/ops/pallas/conv3x3.py:71", "patch"),
+            ("conv3x3_tout", "llmmil_tpu_torch/csrc/conv3x3_tout.cu",
+             "llmmil_tpu/ops/pallas/conv3x3.py:86", "tout")):
+        fwd = path_row[f"fwd_{key}"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launched[name],
+            "max_abs_err": max(max(r[f"fwd_{key}"]["err"],
+                                   r[f"dgrad_{key}"]["err"])
+                               for r in mode_rows),
+            "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
+            "bound_ms": path_row["fwd_bound_ms"],
+            "bound_by": path_row["fwd_bound_by"],
+            "library_ms": path_row["fwd_library_ms"],   # F.conv2d
+            "dgrad_ms": path_row[f"dgrad_{key}"]["ms"],
+            "dgrad_library_ms": path_row["dgrad_library_ms"],
+            "timed_at": path_row["shape"],
+            "comparison_launches": modes_compared[name],
+            "shapes": [{k: v for k, v in r.items() if k == "shape"
+                        or key in k or k.endswith(("taps_ms", "library_ms"))}
+                       for r in mode_rows]})
+    wt = path_row["wgrad_tout"]
+    kernels.append({
+        "name": "conv3x3_wgrad_tout", "route": "cuda",
+        "source": "llmmil_tpu_torch/csrc/conv3x3_wgrad_tout.cu",
+        "replaces": "llmmil_tpu/ops/pallas/conv3x3.py:194",
+        "launches": launched["conv3x3_wgrad_tout"],
+        "max_abs_err": max(r["wgrad_tout"]["err"] for r in mode_rows),
+        "ms": wt["ms"], "plain_ms": wt["plain_ms"],
+        "bound_ms": wt["bound_ms"], "bound_by": wt["bound_by"],
+        "library_ms": wt["library_ms"],                 # conv2d_weight
+        "timed_at": path_row["shape"],
+        "comparison_launches": modes_compared["conv3x3_wgrad_tout"],
+        "shapes": [{"shape": r["shape"], **r["wgrad_tout"]}
+                   for r in mode_rows]})
     for k in kernels:
-        k["launches_by_path"] = {"serve": serve_launched[k["name"]],
-                                 "train": train_launched[k["name"]]}
+        k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}
     print(f"[done] {time.time() - t_start:.1f} s, main-path launches "
-          f"(serve + train): {launched}; train step on both routes: "
-          f"{json.dumps(route_rows)}", flush=True)
+          f"(serve + train + transmil + bench): {launched}; train step on "
+          f"both routes: {json.dumps(route_rows)}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,10 @@ card.
 
 ``python -m llmmil_tpu_torch.eval.profile_forward [--model_ci CLIP]
 [--batch 8] [--bag 8192] [--no_kernel] [--ct tri|only] [--ct_depth 160]
-[--ct_conv_backend pallas|xla] [--train]`` builds the flagship at full width with
-seeded random weights (the pathology model, or with ``--ct`` the tri-modal
-or the CT-only one on 512 x 512 slices), runs a few forwards under
+[--ct_conv_backend pallas|xla] [--aggregator ABMIL|TransMIL] [--train]``
+builds the flagship at full width with seeded random weights (the pathology
+model, or with ``--ct`` the tri-modal or the CT-only one on 512 x 512 slices;
+pooled by ABMIL or by the paper's default TransMIL), runs a few forwards under
 ``torch.profiler`` and prints one JSON line: the card, milliseconds per
 forward on the host's clock, the device's busy milliseconds per forward (sum
 of kernel times), its idle share, the number of kernels per forward, the
@@ -48,12 +49,16 @@ def main(argv=None) -> dict:
     p.add_argument("--ct_depth", type=int, default=160)
     p.add_argument("--ct_conv_backend", default="pallas",
                    choices=["pallas", "xla"])
+    p.add_argument("--aggregator", default="ABMIL",
+                   choices=["ABMIL", "TransMIL"],
+                   help="the MIL aggregator (and model_pathology): ABMIL, "
+                        "or the paper's default TransMIL")
     p.add_argument("--train", action="store_true",
                    help="profile train steps instead of forwards")
     args = p.parse_args(argv)
 
-    kw = dict(modality=["pathology"], model_pathology="ABMIL",
-              aggregator="ABMIL", loss_point="Last",
+    kw = dict(modality=["pathology"], model_pathology=args.aggregator,
+              aggregator=args.aggregator, loss_point="Last",
               compute_dtype="bfloat16", use_pallas=not args.no_kernel)
     if args.model_ci == "CLIP":
         kw.update(model_CI="CLIP", CI_input_version="text",
@@ -137,7 +142,8 @@ def main(argv=None) -> dict:
         check=True).stdout.strip().splitlines()[0]
     out = {
         "card": card, "config": f"{args.model_ci} {args.batch}x{args.bag} "
-        f"bf16 kernel={'off' if args.no_kernel else 'on'}" + (
+        f"bf16 {args.aggregator} kernel={'off' if args.no_kernel else 'on'}"
+        + (
             f" ct={args.ct} depth={args.ct_depth} "
             f"conv={args.ct_conv_backend}" if args.ct else "") + (
             f" train ct_remat={cfg.ct_remat}" if args.train else ""),

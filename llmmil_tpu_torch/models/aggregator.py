@@ -10,9 +10,15 @@ Structure of the full model (the JAX package's ``models/aggregator.py``):
 
 Ported: every modality mix (tri-modal ``["CT", "pathology"]``, CT-only,
 pathology-only, clinical-information-only) with ``model_CT`` ``resnetMC3_18``
-/ ``resnetMC3_18_wMask`` and aggregators ``ABMIL``, ``ABMIL_v2`` and ``-``.
-The other CT trunks and the TransMIL aggregators raise
-``NotImplementedError`` naming the ROADMAP.md item that ports them.
+/ ``resnetMC3_18_wMask`` and aggregators ``ABMIL``, ``ABMIL_v2``,
+``TransMIL`` (one module pools the fused stream and, under
+``loss_point="CT-Pth-Last"``, the CT and pathology streams: one module,
+three calls), ``TransMIL_seperate`` (tri-modal: a TransMIL pools each
+modality's CI-side stream into one token, ``aggregator_CT`` /
+``aggregator_Pth``, and ABMIL pools the result; elsewhere ABMIL alone, as in
+the JAX package) and ``-``.  The other CT trunks and
+``TransMIL_per_modality`` raise ``NotImplementedError`` naming the ROADMAP.md
+item that ports them.
 Submodules carry the reference's ``state_dict`` names (``extractor_CT.model.
 stem.0``, ``fc_pathology.0``, ``TwoWayTransformer_Both.layers.0...``,
 ``fc.1``).
@@ -39,6 +45,7 @@ from .ct_mc3 import ResnetMC3_18
 from .layers import Dense, compute_dtype, init_weights
 from .simple_fcs import (SimpleFCsV1, SimpleFCsV1d, SimpleFCsV2,
                          SimpleFCsV2d)
+from .transmil import TransMIL
 from .twoway import TwoWayTransformer
 
 EMBED_DIM = 512
@@ -46,8 +53,9 @@ EMBED_DIM = 512
 _MC3 = ("resnetMC3_18", "resnetMC3_18_wMask")
 _CT_TRUNK_ITEM = ("model_CT={kind!r} is not ported yet (ROADMAP.md, Queue 1 "
                   "item 5: the other trunks and heads)")
-_TRANSMIL_ITEM = ("aggregator={kind!r} is not ported yet (ROADMAP.md, "
-                  "Queue 1 item 2: models/transmil.py + ops/nystrom.py)")
+_PER_MODALITY_ITEM = ("aggregator='TransMIL_per_modality' is not ported yet "
+                      "(ROADMAP.md, Queue 1 item 5: the other trunks and "
+                      "heads, transmil_per_modality.py)")
 
 
 def make_clinic_extractor(c: Config, dtype: torch.dtype) -> nn.Module:
@@ -203,16 +211,27 @@ class Aggregator(nn.Module):
         use_kernel = resolve_use_kernel(c.use_pallas, raw_bag=False)
         kind = c.aggregator
         head_in = EMBED_DIM
-        if kind == "ABMIL":
+
+        def transmil(moe_experts=0):
+            return TransMIL(c.num_classes, L=EMBED_DIM, dtype=dtype,
+                            pinv_iterations=c.nystrom_pinv_iters,
+                            moe_experts=moe_experts)
+
+        if kind in ("ABMIL", "TransMIL_seperate"):
+            # TransMIL_seperate's final pooling is ABMIL
             self.aggregator = ABMIL(L=EMBED_DIM, dtype=dtype,
                                     use_kernel=use_kernel)
+            if kind == "TransMIL_seperate" and has_ct and has_pth:
+                self.aggregator_CT = transmil()
+                self.aggregator_Pth = transmil()
         elif kind == "ABMIL_v2":
             self.aggregator = ABMILv2(L=EMBED_DIM, dtype=dtype,
                                       use_kernel=use_kernel)
             head_in = EMBED_DIM + 1
-        elif kind in ("TransMIL", "TransMIL_seperate",
-                      "TransMIL_per_modality"):
-            raise NotImplementedError(_TRANSMIL_ITEM.format(kind=kind))
+        elif kind == "TransMIL":
+            self.aggregator = transmil(c.moe_experts)
+        elif kind == "TransMIL_per_modality":
+            raise NotImplementedError(_PER_MODALITY_ITEM)
         elif kind == "-":
             self.aggregator = None
         else:
@@ -242,8 +261,10 @@ class Aggregator(nn.Module):
                                           device=key[2])[None]
         return self._pe[key]
 
-    def _pool(self, tokens, mask, bprc):
+    def _pool(self, tokens, mask, bprc, return_attn):
         """Run the MIL aggregator, normalising its return to ((B, D), attn)."""
+        if isinstance(self.aggregator, TransMIL):
+            return self.aggregator(tokens, mask=mask, return_attn=return_attn)
         if isinstance(self.aggregator, ABMILv2):
             pooled, attn = self.aggregator(tokens, bprc, mask=mask)
         else:
@@ -336,6 +357,12 @@ class Aggregator(nn.Module):
             if self.separate:
                 outputs["emb_CI2CT"] = x_ci2ct
                 outputs["emb_CI2Pth"] = x_ci2pth
+            if hasattr(self, "aggregator_CT"):       # TransMIL_seperate
+                x_ci2ct = self.aggregator_CT(
+                    x_ci2ct, mask=ci2ct_mask)[0][:, None]
+                x_ci2pth = self.aggregator_Pth(
+                    x_ci2pth, mask=ci2pth_mask)[0][:, None]
+                ci2ct_mask = ci2pth_mask = None
             streams = [emb_ct2ci, x_ci2ct, emb_pth2ci, x_ci2pth]
             masks = [ct_emb_mask, ci2ct_mask, pth_emb_mask, ci2pth_mask]
             x0 = torch.cat(streams, dim=1)
@@ -372,7 +399,7 @@ class Aggregator(nn.Module):
             if self.aggregator is None:
                 pooled = tokens.mean(dim=1)
             else:
-                pooled, attn = self._pool(tokens, mask, bprc)
+                pooled, attn = self._pool(tokens, mask, bprc, return_attn)
                 if return_attn:
                     attns.append(attn)
             return activation(c, fc(pooled))

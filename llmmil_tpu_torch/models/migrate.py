@@ -15,7 +15,11 @@ are the inverse of ``llmmil_tpu/models/migrate.py``:
   depth-independent (1,kH,kW) convolution gains its kD = 1 axis;
 - BatchNorm ``params`` (``scale``, ``bias``) and ``batch_stats`` (``mean``,
   ``var``) → ``weight``, ``bias``, ``running_mean``, ``running_var``;
-  ``num_batches_tracked`` is set to 0.
+  ``num_batches_tracked`` is set to 0;
+- TransMIL (``transmil``): ``fc1`` → ``_fc1.0``, the biasless ``to_qkv``,
+  ``to_out`` → ``to_out.0``, ``res_conv`` (already in torch's (heads, 1, k,
+  1) layout), PPEG's depthwise kernels (k, k, 1, D) → (D, 1, k, k); a
+  TransMIL subtree must hold exactly the leaves it maps, or it raises.
 
 The port names its modules by the reference's ``state_dict`` keys, so the
 result has the key names of a reference checkpoint.
@@ -112,6 +116,43 @@ def resnet_mc3(p: Mapping, stats: Mapping, pre: str
         for part in trunk[name]:          # conv1, conv2, downsample
             out.update(conv_bn(trunk[name][part], tstats[name][part],
                                f"{pre}{stage}.{block}.{part}."))
+    return out
+
+
+def _exact(p: Mapping, keys, where: str) -> None:
+    """A subtree holds exactly ``keys``: a leaf without a destination, or a
+    destination without a leaf, raises."""
+    have, want = set(p), set(keys)
+    if have != want:
+        raise KeyError(f"from_flax: {where} holds {sorted(have - want)} "
+                       f"without a destination and lacks "
+                       f"{sorted(want - have)}")
+
+
+def transmil(p: Mapping, pre: str) -> Dict[str, torch.Tensor]:
+    """``TransMIL`` params → the reference's ``<pre>_fc1.0``, ``cls_token``,
+    ``layer{1,2}.{norm,attn.*}``, ``pos_layer.proj*``, ``norm`` keys."""
+    _exact(p, ("fc1", "cls_token", "layer1", "pos_layer", "layer2", "norm"),
+           pre or "TransMIL")
+    out = dense(p["fc1"], pre + "_fc1.0.")
+    out[pre + "cls_token"] = _t(p["cls_token"])
+    out.update(layer_norm(p["norm"], pre + "norm."))
+    _exact(p["pos_layer"], ("proj", "proj1", "proj2"), pre + "pos_layer")
+    for name in ("proj", "proj1", "proj2"):
+        conv_p = p["pos_layer"][name]
+        _exact(conv_p, ("kernel", "bias"), f"{pre}pos_layer.{name}")
+        out[f"{pre}pos_layer.{name}.weight"] = _t(
+            np.asarray(conv_p["kernel"]).transpose(3, 2, 0, 1))
+        out[f"{pre}pos_layer.{name}.bias"] = _t(conv_p["bias"])
+    for layer in ("layer1", "layer2"):
+        lp, src = f"{pre}{layer}.", p[layer]
+        _exact(src, ("norm", "attn"), lp[:-1])
+        _exact(src["attn"], ("to_qkv", "to_out", "res_conv"), lp + "attn")
+        _exact(src["attn"]["to_qkv"], ("kernel",), lp + "attn.to_qkv")
+        out.update(layer_norm(src["norm"], lp + "norm."))
+        out.update(dense(src["attn"]["to_qkv"], lp + "attn.to_qkv."))
+        out.update(dense(src["attn"]["to_out"], lp + "attn.to_out.0."))
+        out[lp + "attn.res_conv.weight"] = _t(src["attn"]["res_conv"])
     return out
 
 
@@ -226,8 +267,13 @@ def from_flax(variables: Mapping, cfg: Config) -> Dict[str, torch.Tensor]:
             sd.update(twoway(p[name], name + "."))
     if not has_ct and not has_pth:
         sd.update(dense(p["fc_CI"], "fc_CI.0."))
-    if cfg.aggregator != "-":
+    if cfg.aggregator == "TransMIL":
+        sd.update(transmil(p["aggregator"], "aggregator."))
+    elif cfg.aggregator != "-":
         sd.update(abmil(p["aggregator"], "aggregator."))
+    for name in ("aggregator_CT", "aggregator_Pth"):   # TransMIL_seperate
+        if name in p:
+            sd.update(transmil(p[name], name + "."))
     for name in ("fc", "fc_CT", "fc_Pth"):    # <name>.0 is the Dropout
         if name in p:
             sd.update(dense(p[name], name + ".1."))

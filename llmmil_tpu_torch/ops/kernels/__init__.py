@@ -4,8 +4,11 @@ The sources are in ``llmmil_tpu_torch/csrc``; ``build.py`` compiles them at
 first use.
 """
 
-from .conv3x3 import (conv3x3, conv3x3_dgrad, conv3x3_dgrad_plain,
-                      conv3x3_plain, conv3x3_wgrad, conv3x3_wgrad_plain)
+from .conv3x3 import (FWD_MODES, WGRAD_MODES, conv3x3, conv3x3_dgrad,
+                      conv3x3_dgrad_plain, conv3x3_fwd, conv3x3_patch,
+                      conv3x3_patch_plain, conv3x3_plain, conv3x3_tout,
+                      conv3x3_tout_plain, conv3x3_wgrad, conv3x3_wgrad_plain,
+                      conv3x3_wgrad_tout, conv3x3_wgrad_tout_plain)
 from .mil_pool import mil_pool, mil_pool_plain
 
 
@@ -28,6 +31,9 @@ def resolve_use_kernel(val, raw_bag: bool) -> bool:
     return bool(val)
 
 
-__all__ = ["conv3x3", "conv3x3_dgrad", "conv3x3_dgrad_plain",
-           "conv3x3_plain", "conv3x3_wgrad", "conv3x3_wgrad_plain", "mil_pool",
+__all__ = ["FWD_MODES", "WGRAD_MODES", "conv3x3", "conv3x3_dgrad",
+           "conv3x3_dgrad_plain", "conv3x3_fwd", "conv3x3_patch",
+           "conv3x3_patch_plain", "conv3x3_plain", "conv3x3_tout",
+           "conv3x3_tout_plain", "conv3x3_wgrad", "conv3x3_wgrad_plain",
+           "conv3x3_wgrad_tout", "conv3x3_wgrad_tout_plain", "mil_pool",
            "mil_pool_plain", "resolve_use_kernel"]

@@ -2,9 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and includes no PyTorch
 header, so ``nvcc`` takes seconds.  A library is built at first use into
-``ops/kernels/_build/`` (git-ignored), keyed by a hash of its source, and
-loaded with ``ctypes``.  A build that fails raises: nothing gives way to a
-kernel's plain version.
+``ops/kernels/_build/`` (git-ignored), keyed by a hash of its source and of
+the headers beside it (``csrc/*.cuh``), and loaded with ``ctypes``.  A build
+that fails raises: nothing gives way to a kernel's plain version.
 """
 
 from __future__ import annotations
@@ -36,10 +36,12 @@ def _find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` is built to, for the source as it stands."""
-    src = CSRC_DIR / f"{name}.cu"
-    tag = hashlib.sha256(src.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """Where ``csrc/<name>.cu`` is built to, for the sources as they stand."""
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    tag = digest.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{tag}.so"
 
 

@@ -7,28 +7,44 @@ wrappers, plain versions and the ``torch.autograd.Function`` that joins them.
     dk[dr, dc]      = Σ_{n, h, w} x[n, h + dr - 1, w + dc - 1, :]ᵀ · g[n, h, w, :]
 
 with x read as zero outside the image.  The kernels replace the Pallas TPU
-kernels of ``llmmil_tpu/ops/pallas/conv3x3.py`` that MC3 layer1's
-depth-folded convolutions reach through ``models/ct_mc3.py::DepthFoldedConv``
-when ``ct_conv_backend="pallas"``:
+kernels of ``llmmil_tpu/ops/pallas/conv3x3.py``.  As there, each of the three
+products comes in modes, which compute the same function in another
+arithmetic:
 
-- forward and input gradient: ``csrc/conv3x3.cu`` replaces ``_fwd_kernel``
-  (``_conv_fwd(mode="taps")``); the input gradient is that same kernel on
-  the rotated, transposed kernel, as the JAX package's custom VJP runs it;
-- weight gradient: ``csrc/conv3x3_wgrad.cu`` replaces ``_wgrad_kernel``
-  (``_conv_wgrad(mode="taps")``).
+- ``taps`` (the model path: MC3 layer1's depth-folded convolutions reach it
+  through ``models/ct_mc3.py::DepthFoldedConv`` when
+  ``ct_conv_backend="pallas"``): ``csrc/conv3x3.cu`` replaces ``_fwd_kernel``
+  (``_conv_fwd(mode="taps")``), nine tap products over one staged halo
+  patch; the input gradient is that same kernel on the rotated, transposed
+  kernel, as the JAX package's custom VJP runs it; ``csrc/conv3x3_wgrad.cu``
+  replaces ``_wgrad_kernel`` (``_conv_wgrad(mode="taps")``);
+- ``patch``: ``csrc/conv3x3_patch.cu`` replaces ``_fwd_patch_kernel``, one
+  product with K = 9C over the im2col matrix, staged tile by tile;
+- ``tout``: ``csrc/conv3x3_tout.cu`` replaces ``_tout_kernel``, the
+  transposed product yᵀ (F, N·H·W) = kᵀ · patchᵀ, turned back to NHWC here;
+  ``csrc/conv3x3_wgrad_tout.cu`` replaces ``_wgrad_tout_kernel``, dkᵀ (F, 9C)
+  = gᵀ · patch.
+
+``conv3x3_fwd``, ``conv3x3_dgrad`` and ``conv3x3_wgrad`` take the mode (the
+counterparts of ``_conv_fwd`` and ``_conv_wgrad``); ``patch`` and ``tout``
+are reached only through them (``eval/bench_conv3x3.py``), never by the
+model, whose ``conv3x3`` and its ``autograd.Function`` stay on ``taps`` as
+the JAX custom VJP does.  An unknown mode raises ``ValueError`` (the JAX
+functions take ``taps`` for any other string).
 
 What bounds them on an H100: ``2·N·H·W·9·C·F`` operations against x (or g)
 read once and the output written once.  At the trunk's shape, (160, 128,
 128, 192) → 64 in bf16, each is 5.8e11 operations (0.59 ms at the 989 TFLOP/s
 bf16 peak) against 1.34 GB (0.40 ms at 3.35 TB/s): operations; an fp32 tensor
 runs on the fp32 pipes and operations bound it by far.  What the designs do
-about it is in the two sources: the forward stages an 18 × 18 halo patch of
+about it is in the sources: the taps forward stages an 18 × 18 halo patch of
 16 channels at a time and runs the nine taps as shifted ``ldmatrix`` windows
-through ``mma.sync``; the weight gradient splits the 2.6M-pixel reduction
-over the grid, keeps each block's (tap, 32 channels) × 64 partial in
-registers, stages the same kind of halo patch beside the tile of g, and adds
-the partials in a second pass in a fixed order (no float atomics, so two runs
-give the same bits).  Nothing is padded or copied in device memory.
+through ``mma.sync``; the patch and tout kernels gather explicit im2col tiles
+(one tap, a chunk of channels, a run of pixels) into a ring of stages and
+run one GEMM loop over K = 9C; the weight gradients split the 2.6M-pixel
+reduction over the grid, keep each block's partial in registers, and add
+the partials in a second pass in a fixed order (no float atomics, so two
+runs give the same bits).  Nothing is padded or copied in device memory.
 
 Numerics, as the TPU kernels: the forward casts k to x's type, multiplies in
 that type and accumulates in fp32, y in x's type; the backward casts g to
@@ -39,8 +55,10 @@ cast carries it to the fp32 parameter).
 
 A CUDA tensor launches the kernels or raises; a CPU tensor takes the plain
 versions, in the forward and in the backward alike.  ``conv3x3.launches``,
-``conv3x3_dgrad.launches`` and ``conv3x3_wgrad.launches`` count the kernel
-launches of each.
+``conv3x3_dgrad.launches`` and ``conv3x3_wgrad.launches`` count the taps
+kernels' launches; ``conv3x3_patch.launches`` and ``conv3x3_tout.launches``
+those of the patch and tout kernels (forward and input gradient alike), and
+``conv3x3_wgrad_tout.launches`` those of the transposed weight gradient.
 """
 
 from __future__ import annotations
@@ -53,6 +71,17 @@ import torch.nn.functional as F
 from .build import load_library
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+FWD_MODES = ("taps", "patch", "tout")      # forward and input gradient
+WGRAD_MODES = ("taps", "tout")             # weight gradient
+# The plain patch and tout versions build the im2col matrix a group of whole
+# images at a time, at most this many elements of it.
+_IM2COL_CHUNK = 1 << 26
+
+
+def _check_mode(name, mode, modes):
+    if mode not in modes:
+        raise ValueError(f"{name}: unknown mode {mode!r}; expected one of "
+                         f"{modes}")
 
 
 def _check_shapes(x, w):
@@ -123,25 +152,90 @@ def conv3x3_wgrad_plain(x, dy, acc_dtype=torch.float32):
     return torch.stack(taps).reshape(3, 3, c, f).float()
 
 
+def im2col(x):
+    """The (N·H·W, 9C) im2col matrix of x (N, H, W, C) in x's type: one row
+    a pixel, columns tap-major, k = (dr·3 + dc)·C + c, as
+    ``w.reshape(9C, F)`` lays them out; zeros outside the image."""
+    n, h, wd, c = x.shape
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    return torch.cat([xp[:, dr:dr + h, dc:dc + wd, :]
+                      for dr in range(3) for dc in range(3)],
+                     dim=-1).reshape(-1, 9 * c)
+
+
+def _image_groups(x, cols):
+    """Slices of whole images whose im2col matrices hold at most
+    ``_IM2COL_CHUNK`` elements each (at least one image)."""
+    n, h, wd = x.shape[:3]
+    per = max(1, _IM2COL_CHUNK // max(1, h * wd * cols))
+    return [slice(i, i + per) for i in range(0, n, per)]
+
+
+def conv3x3_patch_plain(x, w):
+    """Plain version of the patch mode: the im2col matrix in x's type times
+    ``w.reshape(9C, F)`` cast to x's type, one fp32 product (exact products
+    for bf16 values, fp32 sums); (N, H, W, F) in x's type."""
+    _check_shapes(x, w)
+    n, h, wd, c = x.shape
+    f = w.shape[-1]
+    wf = w.to(x.dtype).reshape(9 * c, f).float()
+    return torch.cat([(im2col(x[s]).float() @ wf).to(x.dtype)
+                      for s in _image_groups(x, 9 * c)]).reshape(n, h, wd, f)
+
+
+def conv3x3_tout_plain(x, w):
+    """Plain version of the tout mode: yᵀ (F, N·H·W) = wᵀ · patchᵀ, one fp32
+    product rounded to x's type, then transposed back to (N, H, W, F)."""
+    _check_shapes(x, w)
+    n, h, wd, c = x.shape
+    f = w.shape[-1]
+    wt = w.to(x.dtype).reshape(9 * c, f).float().t()
+    yt = torch.cat([(wt @ im2col(x[s]).float().t()).to(x.dtype)
+                    for s in _image_groups(x, 9 * c)], dim=1)
+    return yt.reshape(f, n, h, wd).permute(1, 2, 3, 0).contiguous()
+
+
+def conv3x3_wgrad_tout_plain(x, dy, acc_dtype=torch.float32):
+    """Plain version of the tout weight gradient: dwᵀ (F, 9C) = dyᵀ · patch
+    in ``acc_dtype`` (dy rounded to x's type first), summed over groups of
+    images, returned as ``dwt.T.reshape(3, 3, C, F)`` float32."""
+    _check_pair(x, dy)
+    c, f = x.shape[-1], dy.shape[-1]
+    dwt = torch.zeros((f, 9 * c), dtype=acc_dtype, device=x.device)
+    for s in _image_groups(x, 9 * c):
+        dyf = dy[s].to(x.dtype).to(acc_dtype).reshape(-1, f)
+        dwt += dyf.t() @ im2col(x[s]).to(acc_dtype)
+    return dwt.t().reshape(3, 3, c, f).float()
+
+
 class _Launcher:
-    """The loaded libraries' entry points, with their argument types."""
+    """The libraries' entry points with their argument types, each library
+    loaded (and built) at the first launch of one of its kernels."""
+
+    _FWD = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    _SPLITS = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    _WGRAD = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    ENTRIES = {            # C function: (library, argument types)
+        "conv3x3_fwd": ("conv3x3", _FWD),
+        "conv3x3_patch_fwd": ("conv3x3_patch", _FWD),
+        "conv3x3_tout_fwd": ("conv3x3_tout", _FWD),
+        "conv3x3_wgrad_splits": ("conv3x3_wgrad", _SPLITS),
+        "conv3x3_wgrad": ("conv3x3_wgrad", _WGRAD),
+        "conv3x3_wgrad_tout_splits": ("conv3x3_wgrad_tout", _SPLITS),
+        "conv3x3_wgrad_tout": ("conv3x3_wgrad_tout", _WGRAD),
+    }
 
     def __init__(self):
-        lib = load_library("conv3x3")
-        lib.conv3x3_fwd.argtypes = [ctypes.c_void_p] * 3 + \
-            [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        lib.conv3x3_fwd.restype = ctypes.c_int
-        self.fwd = lib.conv3x3_fwd
-        wlib = load_library("conv3x3_wgrad")
-        wlib.conv3x3_wgrad_splits.argtypes = [ctypes.c_int] * 6 + \
-            [ctypes.POINTER(ctypes.c_int)]
-        wlib.conv3x3_wgrad_splits.restype = ctypes.c_int
-        wlib.conv3x3_wgrad.argtypes = [ctypes.c_void_p] * 4 + \
-            [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        wlib.conv3x3_wgrad.restype = ctypes.c_int
-        self.wgrad_splits = wlib.conv3x3_wgrad_splits
-        self.wgrad = wlib.conv3x3_wgrad
-        self.splits = {}       # (device, shape, dtype) → pixel ranges
+        self.fns = {}
+        self.splits = {}       # (entry, device, shape, dtype) → pixel ranges
+
+    def __getitem__(self, entry):
+        if entry not in self.fns:
+            library, argtypes = self.ENTRIES[entry]
+            fn = getattr(load_library(library), entry)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            self.fns[entry] = fn
+        return self.fns[entry]
 
 
 def _launcher():
@@ -170,9 +264,15 @@ def _check_aligned(name, **tensors):
             raise ValueError(f"{name}: {key} must be 16-byte aligned")
 
 
-def _launch_fwd(x, w, counter):
-    """Check the operands, launch the forward kernel on the current stream;
-    ``counter`` is the wrapper whose launches this counts."""
+_FWD_ENTRY = {"taps": "conv3x3_fwd", "patch": "conv3x3_patch_fwd",
+              "tout": "conv3x3_tout_fwd"}
+
+
+def _launch_fwd(x, w, counter, mode="taps"):
+    """Check the operands, launch the forward kernel of ``mode`` on the
+    current stream; ``counter`` is the wrapper whose launches this counts.
+    The tout kernel writes yᵀ (F, N·H·W), turned back to NHWC here (one
+    copy, part of the mode's cost)."""
     name = counter.__name__
     _check_cuda(name, x)
     if w.device != x.device:
@@ -182,74 +282,141 @@ def _launch_fwd(x, w, counter):
     # k in x's type, as the TPU kernel casts it; it is small, so a strided
     # or fp32 one is copied (cast and laid out in one pass), not refused
     k = torch.empty((3, 3, c, f), dtype=x.dtype, device=x.device).copy_(w)
-    y = torch.empty((n, h, wd, f), dtype=x.dtype, device=x.device)
+    shape = (f, n * h * wd) if mode == "tout" else (n, h, wd, f)
+    y = torch.empty(shape, dtype=x.dtype, device=x.device)
     _check_aligned(name, x=x, w=k, y=y)
     launcher = _launcher()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = launcher.fwd(x.data_ptr(), k.data_ptr(), y.data_ptr(), n, h,
-                           wd, c, f, _DTYPE_CODE[x.dtype], stream)
+        err = launcher[_FWD_ENTRY[mode]](
+            x.data_ptr(), k.data_ptr(), y.data_ptr(), n, h, wd, c, f,
+            _DTYPE_CODE[x.dtype], stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{err} for x {tuple(x.shape)} -> {f}, {x.dtype}")
     counter.launches += 1
+    if mode == "tout":
+        y = y.view(f, n, h, wd).permute(1, 2, 3, 0).contiguous()
     return y
 
 
-def _launch_wgrad(x, dy):
-    """Check the operands, launch the weight-gradient kernels (partials and
-    their fixed-order sum) on the current stream."""
-    _check_cuda("conv3x3_wgrad", x, dy)
+def _launch_wgrad(x, dy, mode="taps"):
+    """Check the operands, launch the weight-gradient kernels of ``mode``
+    (partials and their fixed-order sum) on the current stream, counted in
+    that mode's wrapper.  The tout kernels write dwᵀ (F, 9C), turned into
+    (3, 3, C, F) here."""
+    counter = conv3x3_wgrad if mode == "taps" else conv3x3_wgrad_tout
+    name = counter.__name__
+    _check_cuda(name, x, dy)
     if dy.dtype != x.dtype:
-        raise TypeError(f"conv3x3_wgrad: dy must be in x's type {x.dtype}, "
-                        f"got {dy.dtype}")
+        raise TypeError(f"{name}: dy must be in x's type {x.dtype}, got "
+                        f"{dy.dtype}")
     n, h, wd, c = x.shape
     f = dy.shape[-1]
     code = _DTYPE_CODE[x.dtype]
+    entry = "conv3x3_wgrad" if mode == "taps" else "conv3x3_wgrad_tout"
     launcher = _launcher()
     with torch.cuda.device(x.device):
-        key = (x.device, n, h, wd, c, f, code)
+        key = (entry, x.device, n, h, wd, c, f, code)
         if key not in launcher.splits:
             out = ctypes.c_int(0)
-            err = launcher.wgrad_splits(n, h, wd, c, f, code,
-                                        ctypes.byref(out))
+            err = launcher[entry + "_splits"](n, h, wd, c, f, code,
+                                              ctypes.byref(out))
             if err != 0:
-                raise RuntimeError(f"conv3x3_wgrad: planning failed with CUDA "
-                                   f"error {err} for x {tuple(x.shape)}")
+                raise RuntimeError(f"{name}: planning failed with CUDA error "
+                                   f"{err} for x {tuple(x.shape)}")
             launcher.splits[key] = out.value
         splits = launcher.splits[key]
         ws = torch.empty(splits * 9 * c * f, dtype=torch.float32,
                          device=x.device)
-        dw = torch.empty((3, 3, c, f), dtype=torch.float32, device=x.device)
-        _check_aligned("conv3x3_wgrad", x=x, dy=dy)
+        shape = (f, 9 * c) if mode == "tout" else (3, 3, c, f)
+        dw = torch.empty(shape, dtype=torch.float32, device=x.device)
+        _check_aligned(name, x=x, dy=dy)
         stream = torch.cuda.current_stream().cuda_stream
-        err = launcher.wgrad(x.data_ptr(), dy.data_ptr(), ws.data_ptr(),
-                             dw.data_ptr(), n, h, wd, c, f, splits, code,
-                             stream)
+        err = launcher[entry](x.data_ptr(), dy.data_ptr(), ws.data_ptr(),
+                              dw.data_ptr(), n, h, wd, c, f, splits, code,
+                              stream)
     if err != 0:
-        raise RuntimeError(f"conv3x3_wgrad: kernel launch failed with CUDA "
-                           f"error {err} for x {tuple(x.shape)}, dy "
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+                           f"{err} for x {tuple(x.shape)}, dy "
                            f"{tuple(dy.shape)}, {x.dtype}")
-    conv3x3_wgrad.launches += 1
+    counter.launches += 1
+    if mode == "tout":
+        dw = dw.t().reshape(3, 3, c, f)
     return dw
 
 
-def conv3x3_dgrad(g, w):
-    """Input gradient: g (N, H, W, F) with the forward's kernel w (3, 3, C,
-    F) → (N, H, W, C) in g's type.  A CUDA tensor launches the forward
-    kernel on the rotated, transposed kernel (counted in
-    ``conv3x3_dgrad.launches``) or raises; a CPU tensor takes the plain
+def conv3x3_patch(x, w):
+    """The patch mode's forward: x (N, H, W, C), w (3, 3, C, F) → (N, H, W,
+    F) in x's type.  A CUDA tensor launches ``csrc/conv3x3_patch.cu`` or
+    raises; a CPU tensor takes the plain version."""
+    _check_shapes(x, w)
+    if x.is_cuda:
+        return _launch_fwd(x, w, conv3x3_patch, "patch")
+    return conv3x3_patch_plain(x, w)
+
+
+def conv3x3_tout(x, w):
+    """The tout mode's forward: x (N, H, W, C), w (3, 3, C, F) → (N, H, W,
+    F) in x's type.  A CUDA tensor launches ``csrc/conv3x3_tout.cu`` (which
+    writes yᵀ) and transposes its output back, or raises; a CPU tensor takes
+    the plain version."""
+    _check_shapes(x, w)
+    if x.is_cuda:
+        return _launch_fwd(x, w, conv3x3_tout, "tout")
+    return conv3x3_tout_plain(x, w)
+
+
+def conv3x3_wgrad_tout(x, dy):
+    """The tout mode's weight gradient: x (N, H, W, C), dy (N, H, W, F) in
+    x's type → (3, 3, C, F) float32.  A CUDA tensor launches
+    ``csrc/conv3x3_wgrad_tout.cu`` or raises; a CPU tensor takes the plain
     version."""
+    _check_pair(x, dy)
+    if x.is_cuda:
+        return _launch_wgrad(x, dy, "tout")
+    return conv3x3_wgrad_tout_plain(x, dy)
+
+
+def conv3x3_fwd(x, w, mode="taps"):
+    """The forward in one of the modes, without autograd: the counterpart of
+    the JAX package's ``_conv_fwd(x, w, mode=)``.  ``taps`` is counted in
+    ``conv3x3.launches`` (the model path's kernel), ``patch`` and ``tout`` in
+    ``conv3x3_patch.launches`` and ``conv3x3_tout.launches``."""
+    _check_mode("conv3x3_fwd", mode, FWD_MODES)
+    if mode == "patch":
+        return conv3x3_patch(x, w)
+    if mode == "tout":
+        return conv3x3_tout(x, w)
+    _check_shapes(x, w)
+    if x.is_cuda:
+        return _launch_fwd(x, w, conv3x3)
+    return conv3x3_plain(x, w)
+
+
+def conv3x3_dgrad(g, w, mode="taps"):
+    """Input gradient: g (N, H, W, F) with the forward's kernel w (3, 3, C,
+    F) → (N, H, W, C) in g's type: the forward of ``mode`` on the rotated,
+    transposed kernel.  A CUDA tensor launches that kernel (``taps`` counted
+    in ``conv3x3_dgrad.launches``, the others in their forward's counter) or
+    raises; a CPU tensor takes the plain version."""
+    _check_mode("conv3x3_dgrad", mode, FWD_MODES)
+    if mode != "taps":
+        return conv3x3_fwd(g, _rotated(w), mode)
     _check_shapes(g, _rotated(w))
     if g.is_cuda:
         return _launch_fwd(g, _rotated(w), conv3x3_dgrad)
     return conv3x3_dgrad_plain(g, w)
 
 
-def conv3x3_wgrad(x, dy):
+def conv3x3_wgrad(x, dy, mode="taps"):
     """Weight gradient: x (N, H, W, C), dy (N, H, W, F) in x's type →
-    (3, 3, C, F) float32.  A CUDA tensor launches the kernels or raises; a
+    (3, 3, C, F) float32, in ``mode`` (``taps`` or ``tout``; the counterpart
+    of ``_conv_wgrad``).  A CUDA tensor launches the kernels or raises; a
     CPU tensor takes the plain version."""
+    _check_mode("conv3x3_wgrad", mode, WGRAD_MODES)
+    if mode == "tout":
+        return conv3x3_wgrad_tout(x, dy)
     _check_pair(x, dy)
     if x.is_cuda:
         return _launch_wgrad(x, dy)
@@ -279,7 +446,7 @@ class _Conv3x3Function(torch.autograd.Function):
 
 
 def conv3x3(x, w):
-    """3×3 stride-1 SAME NHWC convolution, differentiable.
+    """3×3 stride-1 SAME NHWC convolution, differentiable, in the taps mode.
 
     x: (N, H, W, C) float32 or bfloat16; w: (3, 3, C, F); returns
     (N, H, W, F) in x's type.  A CUDA tensor launches the kernel or raises;
@@ -299,3 +466,6 @@ conv3x3.launches = 0        # one per forward launch, nowhere else
 conv3x3.launcher = None     # the loaded libraries, set at the first launch
 conv3x3_dgrad.launches = 0  # one per input-gradient launch
 conv3x3_wgrad.launches = 0  # one per weight-gradient launch (both kernels)
+conv3x3_patch.launches = 0  # one per patch-kernel launch (forward or dgrad)
+conv3x3_tout.launches = 0   # one per tout-kernel launch (forward or dgrad)
+conv3x3_wgrad_tout.launches = 0   # one per tout weight-gradient launch

@@ -248,15 +248,19 @@ def test_bad_alignment_base_raises_the_jax_message(kw):
     dict(modality=["CT"], model_CT="SwinUNETR"),
     dict(modality=["CT"], model_CT="MViT"),
     dict(modality=["CT"], ct_shard_axis="depth"),
-    dict(modality=["CT", "pathology"], aggregator="TransMIL"),
-    dict(aggregator="TransMIL"),
-    dict(aggregator="TransMIL_seperate"),
+    dict(modality=["CT", "pathology"], aggregator="TransMIL",
+         moe_experts=4),
+    dict(aggregator="TransMIL", moe_experts=4),
+    dict(modality=["CT", "pathology"], aggregator="TransMIL_per_modality"),
     dict(aggregator="TransMIL_per_modality"),
     dict(model_family="clip"),
     dict(model_family="clip", modality=["CT", "pathology"]),
     dict(modality=["CT", "pathology"], model_CT="resnetMC3_18_wMask"),
 ])
 def test_unported_branch_raises_not_implemented(kw):
+    """The TransMIL aggregators themselves are ported (their parity tests
+    are in tests/test_torch_transmil.py); a routed-FFN TransMIL and
+    ``TransMIL_per_modality`` are not."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         build_model(Config(**dict(BASE, **kw)), device="cpu")
 

@@ -315,3 +315,159 @@ def test_wgrad_source_has_no_float_atomics():
     from llmmil_tpu_torch.ops.kernels import build
     assert build.library_path("conv3x3_wgrad").name.startswith(
         "libconv3x3_wgrad_")
+
+
+# ---------------------------------------------------------------- modes --
+# The patch and tout modes (forward and input gradient) and the tout weight
+# gradient: their plain versions (which a CPU tensor takes, and which the
+# CUDA kernels are held against on the card by chip_smoke.py) against the
+# JAX package's ``_conv_fwd(mode=)`` / ``_conv_wgrad(mode="tout")`` run in
+# interpret mode, at the cases of tests/test_conv3x3.py (bh 4 and 16, and
+# h = 10, which bh 4 does not divide): fp32 at 1e-5 for the forward, 1e-4
+# for the gradients, bf16 against the fp32 reference at 0.05.
+
+from llmmil_tpu_torch.eval import bench_conv3x3
+from llmmil_tpu_torch.ops.kernels import (FWD_MODES, WGRAD_MODES,
+                                          conv3x3_fwd, conv3x3_patch,
+                                          conv3x3_patch_plain, conv3x3_tout,
+                                          conv3x3_tout_plain,
+                                          conv3x3_wgrad_tout,
+                                          conv3x3_wgrad_tout_plain)
+
+MODE_PLAIN = {"patch": conv3x3_patch_plain, "tout": conv3x3_tout_plain}
+MODE_CASES = [(16, 4), (16, 16), (10, 4)]
+
+
+@pytest.mark.parametrize("mode", sorted(MODE_PLAIN))
+@pytest.mark.parametrize("h,bh", MODE_CASES)
+def test_mode_plain_matches_interpreted_pallas_kernel(mode, h, bh):
+    x, k = _data(h=h)
+    want = _conv_fwd(jnp.asarray(x), jnp.asarray(k), block_h=bh,
+                     interpret=True, mode=mode)
+    got = MODE_PLAIN[mode](t(x), t(k))
+    assert got.shape == (2, h, 16, 4) and got.dtype == torch.float32
+    assert got.is_contiguous()
+    _close(got, want)
+    # the input gradient: the same mode on the rotated, transposed kernel
+    g = np.random.RandomState(10).randn(2, h, 16, 4).astype(np.float32)
+    want_dx = _conv_fwd(jnp.asarray(g), _rot(k), block_h=bh, interpret=True,
+                        mode=mode)
+    got_dx = conv3x3_dgrad(t(g), t(k), mode)
+    assert got_dx.shape == (2, h, 16, 8)
+    _close(got_dx, want_dx, tol=1e-4)
+
+
+@pytest.mark.parametrize("h,bh", MODE_CASES)
+def test_wgrad_tout_plain_matches_interpreted_pallas_kernel(h, bh):
+    x, _ = _data(h=h)
+    dy = np.random.RandomState(11).randn(2, h, 16, 4).astype(np.float32)
+    want = _conv_wgrad(jnp.asarray(x), jnp.asarray(dy), block_h=bh,
+                       interpret=True, mode="tout")
+    got = conv3x3_wgrad_tout_plain(t(x), t(dy))
+    assert got.shape == (3, 3, 8, 4) and got.dtype == torch.float32
+    _close(got, want, tol=1e-4)
+    _close(conv3x3_wgrad(t(x), t(dy), "tout"), want, tol=1e-4)
+    _close(conv3x3_wgrad_tout_plain(t(x), t(dy), torch.float64), want,
+           tol=1e-4)
+
+
+def test_bf16_modes_close_to_fp32_reference():
+    x, k = _data(seed=12)
+    dy = np.random.RandomState(13).randn(2, 16, 16, 4).astype(np.float32)
+    want = conv3x3_reference(jnp.asarray(x), jnp.asarray(k))
+    want_dw = _conv_wgrad(jnp.asarray(x), jnp.asarray(dy), interpret=True,
+                          mode="tout")
+    xb, kb = t(x).to(torch.bfloat16), t(k).to(torch.bfloat16)
+    for mode in MODE_PLAIN:
+        got = conv3x3_fwd(xb, kb, mode)
+        assert got.dtype == torch.bfloat16
+        _close(got.float(), want, tol=0.05)
+    got_dw = conv3x3_wgrad(xb, t(dy).to(torch.bfloat16), "tout")
+    assert got_dw.dtype == torch.float32
+    np.testing.assert_allclose(n(got_dw), np.asarray(want_dw), rtol=0.05,
+                               atol=0.5)
+
+
+@pytest.mark.parametrize("fn,mode,modes", [
+    (conv3x3_fwd, "nope", FWD_MODES), (conv3x3_dgrad, "taps ", FWD_MODES),
+    (conv3x3_wgrad, "patch", WGRAD_MODES)])
+def test_unknown_mode_raises(fn, mode, modes):
+    """The JAX functions take ``taps`` for any other string; the port
+    refuses it, naming the mode."""
+    x, k = _data()
+    second = t(k) if fn is not conv3x3_wgrad else t(x)[..., :4]
+    with pytest.raises(ValueError, match=f"unknown mode '{mode}'"):
+        fn(t(x), second, mode)
+    assert set(modes) <= {"taps", "patch", "tout"}
+
+
+def test_mode_wrappers_on_cpu_take_the_plain_versions():
+    x, k = _data(seed=14)
+    dy = np.random.RandomState(15).randn(2, 16, 16, 4).astype(np.float32)
+    before = (conv3x3.launches, conv3x3_patch.launches,
+              conv3x3_tout.launches, conv3x3_wgrad_tout.launches)
+    for mode, fn in (("patch", conv3x3_patch), ("tout", conv3x3_tout)):
+        assert torch.equal(fn(t(x), t(k)), MODE_PLAIN[mode](t(x), t(k)))
+        assert torch.equal(conv3x3_fwd(t(x), t(k), mode),
+                           MODE_PLAIN[mode](t(x), t(k)))
+    assert torch.equal(conv3x3_fwd(t(x), t(k)), conv3x3_plain(t(x), t(k)))
+    assert torch.equal(conv3x3_wgrad_tout(t(x), t(dy)),
+                       conv3x3_wgrad_tout_plain(t(x), t(dy)))
+    assert (conv3x3.launches, conv3x3_patch.launches, conv3x3_tout.launches,
+            conv3x3_wgrad_tout.launches) == before
+
+
+def test_mode_wrappers_never_take_the_plain_version_on_the_card():
+    src = (PORT / "ops" / "kernels" / "conv3x3.py").read_text()
+    for fn, launch, plain in (
+            ("conv3x3_patch", '_launch_fwd(x, w, conv3x3_patch, "patch")',
+             "conv3x3_patch_plain"),
+            ("conv3x3_tout", '_launch_fwd(x, w, conv3x3_tout, "tout")',
+             "conv3x3_tout_plain"),
+            ("conv3x3_wgrad_tout", '_launch_wgrad(x, dy, "tout")',
+             "conv3x3_wgrad_tout_plain")):
+        body = src.split(f"def {fn}(")[1].split("\ndef ")[0]
+        assert body.index("is_cuda:") < body.index(launch) \
+            < body.index(f"return {plain}")
+
+
+def test_plain_modes_build_the_im2col_matrix_by_groups_of_images(
+        monkeypatch):
+    """The plain versions hold at most a few images' im2col matrix at once
+    (at the path the whole one would be 18 GB in fp32); the result does not
+    depend on the grouping."""
+    mod = sys.modules["llmmil_tpu_torch.ops.kernels.conv3x3"]
+    x, k = _data(nb=3, seed=16)
+    dy = np.random.RandomState(17).randn(3, 16, 16, 4).astype(np.float32)
+    whole = [conv3x3_patch_plain(t(x), t(k)), conv3x3_tout_plain(t(x), t(k)),
+             conv3x3_wgrad_tout_plain(t(x), t(dy))]
+    monkeypatch.setattr(mod, "_IM2COL_CHUNK", 16 * 16 * 72)   # one image
+    assert len(mod._image_groups(t(x), 72)) == 3
+    grouped = [conv3x3_patch_plain(t(x), t(k)),
+               conv3x3_tout_plain(t(x), t(k)),
+               conv3x3_wgrad_tout_plain(t(x), t(dy))]
+    for a, b, tol in zip(whole, grouped, (1e-5, 1e-5, 1e-4)):
+        _close(a, n(b), tol=tol)
+
+
+def test_bench_entry_point_runs_the_plain_versions_on_the_cpu(capsys):
+    assert bench_conv3x3.main(["--small", "--device", "cpu", "--iters", "1",
+                               "--reps", "1"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    for mode in FWD_MODES:
+        assert any(line.startswith(f"parity {mode}: fwd") for line in out)
+        assert any(line.startswith(f"kernel dgrad {mode} ") for line in out)
+    for mode in WGRAD_MODES:
+        assert any(line.startswith(f"kernel wgrad {mode} ") for line in out)
+    assert not any("FAILED" in line for line in out)
+    last = __import__("json").loads(out[-1])
+    assert last["device"] == "cpu" and last["failed"] == []
+
+
+def test_bench_entry_point_refuses_a_row_block_and_fails_a_bad_mode(capsys):
+    with pytest.raises(SystemExit):
+        bench_conv3x3.main(["--small", "--device", "cpu", "--block-h", "8"])
+    assert bench_conv3x3.main(["--small", "--device", "cpu", "--iters", "1",
+                               "--reps", "1", "--modes", "taps,nope",
+                               "--ops", "fwd"]) == 1
+    assert "parity nope: fwd: FAILED ValueError" in capsys.readouterr().out

@@ -233,3 +233,46 @@ def test_cuda_tensor_never_takes_the_plain_version():
         < body.index("return mil_pool_plain")
     build_src = (PORT / "ops" / "kernels" / "build.py").read_text()
     assert "except" not in build_src
+
+
+MODE_SOURCES = {       # source: (C entry point, the TPU kernel it replaces)
+    "conv3x3_patch": ("conv3x3_patch_fwd", "_fwd_patch_kernel"),
+    "conv3x3_tout": ("conv3x3_tout_fwd", "_tout_kernel"),
+    "conv3x3_wgrad_tout": ("conv3x3_wgrad_tout", "_wgrad_tout_kernel")}
+
+
+@pytest.mark.parametrize("name", sorted(MODE_SOURCES))
+def test_mode_kernel_source_calls_no_library_and_no_float_atomics(name):
+    """The patch, tout and tout weight-gradient kernels (and the header they
+    share) are hand-written: no library kernel, no float atomics, the
+    tensor cores through mma.sync, a plain C entry point."""
+    cu = (PORT / "csrc" / f"{name}.cu").read_text()
+    shared = (PORT / "csrc" / "conv3x3_im2col.cuh").read_text()
+    for text in (cu, shared):
+        for lib in ("cudnn", "cublas", "cutlass", "torch/", "atomicadd"):
+            assert lib not in text.lower(), (name, lib)
+    entry, replaces = MODE_SOURCES[name]
+    assert '#include "conv3x3_im2col.cuh"' in cu
+    assert f'extern "C" int {entry}(' in cu and f"`{replaces}`" in cu
+    assert "mma.sync.aligned.m16n8k16" in shared \
+        and "__pipeline_memcpy_async" in shared
+    from llmmil_tpu_torch.ops.kernels import build
+    assert build.library_path(name).name.startswith(f"lib{name}_")
+
+
+def test_library_path_follows_the_shared_header(tmp_path, monkeypatch):
+    """A library is rebuilt when the header it includes changes."""
+    from llmmil_tpu_torch.ops.kernels import build
+    for src in (PORT / "csrc").iterdir():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
+    before = build.library_path("conv3x3_patch")
+    header = tmp_path / "conv3x3_im2col.cuh"
+    header.write_text(header.read_text() + "\n// changed\n")
+    assert build.library_path("conv3x3_patch") != before
+
+
+def test_bench_entry_point_imports_nothing_of_jax():
+    src = (PORT / "eval" / "bench_conv3x3.py").read_text()
+    assert not FORBIDDEN.search(src)
+    assert "llmmil_tpu." not in src and "import jax" not in src
