@@ -13,8 +13,10 @@ ends the run with a non-zero exit; without a CUDA card it exits non-zero at
 once.  The weights are random, made from a seed.  Phases:
 
   device    card name and power limit (nvidia-smi), torch and CUDA versions
-  build     nvcc over llmmil_tpu_torch/csrc (all sources at once), seconds
-  kernels   every kernel against its plain version at every shape, with times
+  build     nvcc over llmmil_tpu_torch/csrc (all sources at once), seconds;
+            HGMMA and no HMMA in conv3x3's SASS (its bf16 kernel on wgmma)
+  kernels   every kernel against its plain version at every shape, with
+            times; conv3x3 the same bits twice
   model     build_model → forward, bf16 kernel path against fp32 plain path
   serve     export_model → ServingModel → InferenceServer, HTTP requests
   model-ct  the tri-modal and the CT-only flagship on one 160 x 512 x 512
@@ -22,7 +24,7 @@ once.  The weights are random, made from a seed.  Phases:
   serve-ct  the tri-modal flagship exported and served over HTTP
   kernels-bwd  conv3x3's input and weight gradients against their plain
             versions (the weight gradient against an fp64 sum), run to run
-            bits of the weight gradient, and cuDNN's backward for scale
+            bits of both, and cuDNN's backward for scale
   kernels-modes  conv3x3's patch and tout kernels (forward and input
             gradient) and the tout weight gradient against their plain
             versions at the path's shape and three ragged ones, both types;
@@ -37,7 +39,8 @@ once.  The weights are random, made from a seed.  Phases:
             the plain versions on its own operands (dk against an fp64 sum)
   model-transmil  the tri-modal flagship with aggregator TransMIL on one
             160 x 512 x 512 volume: conv3x3 kernel route against the stock
-            route, same type; mask-leak probe
+            route, same type; mask-leak probe; res_conv's weight gradient
+            (fp32, 8448 tokens) against an fp64 sum
   serve-transmil  that flagship exported and served over HTTP; pathology-
             only TransMIL at 1 x 16384 rows served, fp32 on the card held
             against the CPU
@@ -152,7 +155,10 @@ CONV_SHAPES = [              # (N, H, W, C, F, dtype)
     (16, 128, 128, 192, 64, torch.float32),     # the same in fp32, 16 slices
     (16, 128, 128, 64, 192, torch.bfloat16),    # dshift
     (16, 128, 128, 64, 64, torch.bfloat16),     # dsum
-    (2, 33, 31, 20, 70, torch.bfloat16),        # ragged everywhere
+    (2, 33, 31, 20, 70, torch.bfloat16),        # ragged everywhere: the
+    #                                             bf16 kernel's cp.async loader
+    (3, 17, 13, 24, 40, torch.bfloat16),        # ragged, C and F multiples of
+    #                                             8: its TMA loader
     (2, 10, 16, 8, 4, torch.float32),
     (3, 17, 13, 24, 40, torch.float32),
 ]
@@ -171,6 +177,7 @@ BWD_SHAPES = [              # (N, H, W, C, F, dtype)
     #                                             plan of pixel ranges
     (16, 128, 128, 192, 64, torch.float32),     # the same in fp32, 16 slices
     (2, 33, 31, 20, 70, torch.bfloat16),        # ragged everywhere
+    (3, 17, 13, 24, 40, torch.bfloat16),        # ragged; dx by TMA
     (2, 10, 16, 8, 4, torch.float32),
     (3, 17, 13, 24, 40, torch.float32),
 ]
@@ -365,7 +372,11 @@ def conv_kernels_phase():
         k = torch.randn(3, 3, c, f, generator=gen, device=DEV) \
             * (9 * c) ** -0.5                       # fp32, as the module's
         y = conv3x3(x, k)
+        again = conv3x3(x, k)
         torch.cuda.synchronize()
+        same_bits = torch.equal(y, again)
+        check(same_bits, f"conv3x3: two runs differ at {name}")
+        del again
         ref = conv3x3_plain(x, k)
         check(y.shape == ref.shape and y.dtype == dtype and y.is_contiguous(),
               f"conv3x3: wrong output shape or type at {name}")
@@ -388,7 +399,7 @@ def conv_kernels_phase():
                            warmup=1)
         bound_ms, bound_by = conv3x3_bound_ms(shape)
         shapes.append({"shape": name, "err": err, "tol": tol,
-                       "library_err": lib_err,
+                       "same_bits": same_bits, "library_err": lib_err,
                        "differs_from_library": off_library,
                        "differs_from_plain": int((ref != y).sum()),
                        "elements": y.numel(), "ms": ms,
@@ -438,7 +449,11 @@ def conv_bwd_phase():
               * (9 * c) ** -0.5).to(dtype)
 
         dx = conv3x3_dgrad(g, kt)
+        again = conv3x3_dgrad(g, kt)
         torch.cuda.synchronize()
+        d_same_bits = torch.equal(dx, again)
+        check(d_same_bits, f"conv3x3_dgrad: two runs differ at {name}")
+        del again
         ref = conv3x3_dgrad_plain(g, kt)
         check(dx.shape == (n, h, w, c) and dx.dtype == dtype
               and bool(torch.isfinite(dx).all()),
@@ -476,6 +491,7 @@ def conv_bwd_phase():
         it, pit = (10, 2) if big else (50, 10)
         row = {"shape": name,
                "dgrad_err": d_err, "dgrad_tol": d_tol,
+               "dgrad_same_bits": d_same_bits,
                "dgrad_library_err": d_lib_err,
                "wgrad_err": w_err, "wgrad_tol": w_tol,
                "wgrad_library_err": w_lib_err,
@@ -1315,6 +1331,53 @@ PATH_TRANSMIL_ATOL = 1e-4
 PATH_TRANSMIL_BAG = 16384
 
 
+# res_conv's weight gradient (models/transmil.py::_ResConv) on the card, in
+# fp32 at the bag length the 8192 bucket gives TransMIL (91 x 91 + the cls
+# token = 8282 tokens, front-padded to 8448), against an fp64 evaluation of
+# dW[h, t] = sum v_pad[b, h, n + t, d] * g[b, h, n, d] on the same v and g:
+# fp32 sums of 0.5M products of operands exact in fp32 -> <= 1e-5 * max|dW|.
+RES_CONV_TOL = 1e-5
+
+
+def res_conv_check():
+    """One fp32 backward through a TransLayer-sized NystromSelfAttention on
+    the card; returns res_conv.weight.grad's error, its tolerance and the
+    padded token count."""
+    from llmmil_tpu_torch.models.transmil import NystromSelfAttention
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 11)
+    n_tok = int(np.ceil(np.sqrt(CT_BAG))) ** 2 + 1
+    mod = NystromSelfAttention(dim=512, heads=8, dim_head=64,
+                               num_landmarks=256).to(DEV).eval()
+    with torch.no_grad():
+        for p in mod.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen, device=DEV) * 0.05)
+    kept = {}
+
+    def keep_v(_, __, qkv):               # v: the last third of to_qkv's
+        kept["v"] = qkv[..., 1024:].detach()
+
+    def keep_out(_, args):                # res_conv's output joins here
+        args[0].retain_grad()
+        kept["out"] = args[0]
+
+    mod.to_qkv.register_forward_hook(keep_v)
+    mod.to_out[0].register_forward_pre_hook(keep_out)
+    x = torch.randn(1, n_tok, 512, generator=gen, device=DEV)
+    out, _ = mod(x)
+    (out * torch.randn(out.shape, generator=gen, device=DEV)).sum().backward()
+    padded = kept["v"].shape[1]
+    v = kept["v"].reshape(1, padded, 8, 64).transpose(1, 2).double()
+    g = kept["out"].grad.reshape(1, padded, 8, 64).transpose(1, 2).double()
+    vp = F.pad(v, (0, 0, 16, 16))
+    want = torch.stack([(vp[:, :, t:t + padded] * g).sum((0, 2, 3))
+                        for t in range(33)], -1)[:, None, :, None]
+    err = float((mod.res_conv.weight.grad.double() - want).abs().max())
+    tol = RES_CONV_TOL * float(want.abs().max())
+    check(padded == 8448 and err <= tol, f"res_conv weight gradient at "
+          f"{padded} tokens: {err} from fp64 (tolerance {tol})")
+    return err, tol, padded
+
+
 def transmil_cfg(modality, dtype="bfloat16", backend="pallas"):
     return ct_cfg(modality, dtype, backend).replace(
         model_pathology="TransMIL", aggregator="TransMIL")
@@ -1474,6 +1537,20 @@ def bench_phase():
 
 # ------------------------------------------------------------------- main --
 
+def sass_line(lib):
+    """conv3x3's bf16 kernel runs on wgmma: its SASS holds HGMMA and no
+    HMMA (mma.sync), where the toolkit has cuobjdump."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.isfile(cuobjdump):
+        return "conv3x3 SASS: not read (no cuobjdump)"
+    sass = subprocess.run([cuobjdump, "--dump-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    hgmma, hmma = sass.count("HGMMA."), sass.count("HMMA.")
+    check(hgmma > 0 and hmma == 0, f"conv3x3's SASS holds {hgmma} HGMMA and "
+          f"{hmma} HMMA: its bf16 kernel is not on wgmma")
+    return f"conv3x3 SASS: {hgmma} HGMMA, {hmma} HMMA"
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1504,6 +1581,7 @@ def main():
     torch.zeros(1, device=DEV)
     print(f"[build] {', '.join(lib.name for lib in libs)} for sm_90a in "
           f"{time.time() - t0:.1f} s", flush=True)
+    print(f"[build] {sass_line(libs[names.index('conv3x3')])}", flush=True)
 
     shapes = kernels_phase()
     compared = mil_pool.launches
@@ -1517,7 +1595,8 @@ def main():
     conv_compared = conv3x3.launches
     for s in conv_shapes:
         print(f"[kernels] conv3x3_fwd {s['shape']}: err {s['err']:.2e} "
-              f"(tol {s['tol']:.2e}; F.conv2d err {s['library_err']:.2e}; "
+              f"(tol {s['tol']:.2e}; same bits twice {s['same_bits']}; "
+              f"F.conv2d err {s['library_err']:.2e}; "
               f"{s['differs_from_plain']} of {s['elements']} values differ "
               f"from plain, {s['differs_from_library']} from F.conv2d) "
               f"ms {s['ms']:.4f} plain_ms {s['plain_ms']:.4f} library_ms "
@@ -1528,7 +1607,7 @@ def main():
     for r in bwd_rows:
         print(f"[kernels-bwd] {r['shape']}: dgrad err {r['dgrad_err']:.2e} "
               f"(tol {r['dgrad_tol']:.2e}; cuDNN {r['dgrad_library_err']:.2e}"
-              f") ms {r['dgrad_ms']:.4f} plain_ms {r['dgrad_plain_ms']:.4f} "
+              f"; same bits twice {r['dgrad_same_bits']}) ms {r['dgrad_ms']:.4f} plain_ms {r['dgrad_plain_ms']:.4f} "
               f"library_ms {r['dgrad_library_ms']:.4f} bound_ms "
               f"{r['dgrad_bound_ms']:.4f} ({r['dgrad_bound_by']}) | wgrad "
               f"err vs fp64 {r['wgrad_err']:.2e} (tol {r['wgrad_tol']:.2e}; "
@@ -1580,6 +1659,9 @@ def main():
     tm_lines, (cfg, model) = model_transmil_phase()
     for line in tm_lines:
         print(f"[model-transmil] {line}", flush=True)
+    err, tol, padded = res_conv_check()
+    print(f"[model-transmil] res_conv weight gradient, fp32, {padded} tokens: "
+          f"err vs fp64 {err:.2e} (tol {tol:.2e})", flush=True)
     tm_serve_lines = serve_ct_phase(cfg, model, pools=0)
     del model
     torch.cuda.empty_cache()

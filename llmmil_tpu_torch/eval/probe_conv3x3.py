@@ -3,7 +3,8 @@
 ``python -m llmmil_tpu_torch.eval.probe_conv3x3 [--shape 160,128,128,192,64]
 [--dtype bfloat16]`` builds ``csrc/conv3x3.cu`` several times, each build
 skipping one phase through the source's ``CONV3X3_SKIP_*`` macros (the loads
-of x or of k after a tile's first chunk, the products, the stores), times
+of x or of k after a tile's first chunk, the products, the stores; for bf16:
+the producer warp's TMA boxes, the consumers' ``wgmma``, the TMA stores), times
 every build at one shape by CUDA events and prints one JSON line with the
 card.  The skipping builds compute garbage: only their times mean something.
 A profiler that reads the card's counters would say more; this works where

@@ -450,8 +450,7 @@ def build_model(cfg: Config, device=None, seed: int | None = None,
     if cfg.model_family == "concat":
         from .baselines import AggregatorConcat
         model = AggregatorConcat(cfg, dtype)
-    elif "wMask" in cfg.model_CT and cfg.wmask_family == "concat" \
-            and "CT" in cfg.modality:
+    elif "wMask" in cfg.model_CT and cfg.wmask_family == "concat":
         raise NotImplementedError(
             "the wMask concat-fusion model (AggregatorWMask) is not ported "
             "yet (ROADMAP.md, Queue 1 item 6: the baselines' remaining "

@@ -29,6 +29,46 @@ _MOE_ITEM = ("a TransMIL with a routed-FFN block (moe_experts > 0) is not "
              "heads, moe.py)")
 
 
+class _ResConv(torch.autograd.Function):
+    """``res_conv``: the (heads, 1, k, 1) depthwise convolution over the
+    token axis of v (B, heads, N, Dh), with the weight gradient written out.
+
+    The forward and the input gradient are ``F.conv2d`` and its transpose.
+    The weight gradient is not left to the library: oneDNN's depthwise
+    weight gradient on the CPU is ~6 % of its max off an fp64 evaluation at
+    a padded length of 256 (taps 17-31).  Here it is what the JAX package's
+    shift-and-add form differentiates to, k reductions over shifted slices
+    of the zero-padded values:
+
+        dW[h, t] = Σ_{b, n, d} v_pad[b, h, n + t, d] · g[b, h, n, d]
+
+    each in fp32 (the products of bf16 operands are exact there), cast to
+    the weight's type.
+    """
+
+    @staticmethod
+    def forward(ctx, v, w):
+        ctx.save_for_backward(v, w)
+        return F.conv2d(v, w, padding=(w.shape[2] // 2, 0),
+                        groups=v.shape[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        v, w = ctx.saved_tensors
+        heads, taps, pad = v.shape[1], w.shape[2], w.shape[2] // 2
+        dv = dw = None
+        if ctx.needs_input_grad[0]:
+            dv = F.conv_transpose2d(g, w, padding=(pad, 0), groups=heads)
+        if ctx.needs_input_grad[1]:
+            n = g.shape[2]
+            vp = F.pad(v.float(), (0, 0, pad, pad))
+            gf = g.float()
+            dw = torch.stack([(vp[:, :, t:t + n] * gf).sum((0, 2, 3))
+                              for t in range(taps)], dim=-1)
+            dw = dw.reshape(w.shape).to(w.dtype)
+        return dv, dw
+
+
 class NystromSelfAttention(nn.Module):
     """Self-attention with the Nyström approximation and a residual
     depthwise convolution over the values (lucidrains' ``NystromAttention``):
@@ -89,8 +129,7 @@ class NystromSelfAttention(nn.Module):
             # of (B, H, N, Dh): what the JAX package computes as k shifted
             # multiply-adds
             dt = self.compute_dtype
-            res = F.conv2d(v.to(dt), self.res_conv.weight.to(dt),
-                           padding=self.res_conv.padding, groups=h)
+            res = _ResConv.apply(v.to(dt), self.res_conv.weight.to(dt))
             out = out + res.transpose(1, 2).reshape(b, -1, h * dh)
         out = self.to_out(out)[:, -n:]          # drop the front padding
         if attn is not None:

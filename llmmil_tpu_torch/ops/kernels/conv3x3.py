@@ -37,9 +37,10 @@ read once and the output written once.  At the trunk's shape, (160, 128,
 128, 192) → 64 in bf16, each is 5.8e11 operations (0.59 ms at the 989 TFLOP/s
 bf16 peak) against 1.34 GB (0.40 ms at 3.35 TB/s): operations; an fp32 tensor
 runs on the fp32 pipes and operations bound it by far.  What the designs do
-about it is in the sources: the taps forward stages an 18 × 18 halo patch of
-16 channels at a time and runs the nine taps as shifted ``ldmatrix`` windows
-through ``mma.sync``; the patch and tout kernels gather explicit im2col tiles
+about it is in the sources: the taps forward (bf16) stages a 10 × 66 halo of
+16 channels at a time by TMA and runs the nine taps as shifted windows of
+it through ``wgmma``, one 64-pixel row of output a product; the patch and
+tout kernels gather explicit im2col tiles
 (one tap, a chunk of channels, a run of pixels) into a ring of stages and
 run one GEMM loop over K = 9C; the weight gradients split the 2.6M-pixel
 reduction over the grid, keep each block's partial in registers, and add

@@ -265,6 +265,24 @@ def test_unported_branch_raises_not_implemented(kw):
         build_model(Config(**dict(BASE, **kw)), device="cpu")
 
 
+def test_wmask_concat_without_ct_raises_as_the_jax_package_dispatches():
+    """The JAX ``build_model`` takes ``AggregatorWMask`` whenever
+    ``'wMask' in model_CT`` under ``wmask_family='concat'``, whatever the
+    modality; the port has not ported it, so it raises there too rather
+    than build another model."""
+    kw = dict(BASE, model_CT="resnetMC3_18_wMask", wmask_family="concat")
+    assert type(jax_build_model(JConfig(**kw))).__name__ == "AggregatorWMask"
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        build_model(Config(**kw), device="cpu")
+
+
+def test_wmask_twoway_without_ct_still_builds():
+    kw = dict(BASE, model_CT="resnetMC3_18_wMask", wmask_family="twoway")
+    assert type(jax_build_model(JConfig(**kw))).__name__ == "Aggregator"
+    model = build_model(Config(**kw), device="cpu")
+    assert type(model).__name__ == "Aggregator"
+
+
 # ------------------------------------------------------------- the CT path --
 # The tiny tri-modal batch of tests/test_golden.py (two 8 x 32 x 32 volumes,
 # bags of 48 rows with 40 valid, ten CLIP prompts of 16 tokens) with

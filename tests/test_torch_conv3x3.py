@@ -198,7 +198,10 @@ def test_kernel_source_calls_no_library():
     cu = (PORT / "csrc" / "conv3x3.cu").read_text()
     for lib in ("cudnn", "cublas", "cutlass", "torch/"):
         assert lib not in cu.lower(), lib
-    assert "mma.sync.aligned.m16n8k16" in cu and 'extern "C" int conv3x3_fwd' in cu
+    # the bf16 products are Hopper's wgmma, fed by TMA; no mma.sync is left
+    assert "wgmma.mma_async.sync.aligned.m64n64k16" in cu
+    assert "cp.async.bulk.tensor" in cu and "mma.sync.aligned" not in cu
+    assert 'extern "C" int conv3x3_fwd' in cu
     from llmmil_tpu_torch.ops.kernels import build
     assert build.library_path("conv3x3").name.startswith("libconv3x3_")
 

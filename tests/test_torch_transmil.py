@@ -209,6 +209,105 @@ def test_transmil_refuses_moe():
         ttm.TransMIL(L=8, D=16, moe_experts=4)
 
 
+# ----------------------------------------------------------- gradients --
+# ``res_conv``'s weight gradient: oneDNN's depthwise weight gradient is ~6 %
+# of its max off at a padded length of 256, so the port writes it out
+# (``models/transmil.py::_ResConv``).  Held to 1e-5 of its max against an
+# fp64 evaluation of dW[h, t] = Σ v_pad[b, h, n + t, d] · g[b, h, n, d] on
+# the same operands: the fp32 sums of B·N·Dh products leave ~1e-6.
+
+RES_CONV_TOL = 1e-5
+
+
+def res_conv_operands(mod):
+    """Hooks that keep what ``mod``'s ``res_conv`` reads: the values v
+    (B, heads, N, Dh), from ``to_qkv``'s output, and the gradient g at its
+    output, which is the gradient at ``to_out``'s input.  Returns the dict
+    they fill ("v", and "out" whose ``.grad`` is g after a backward)."""
+    kept = {}
+    h, dh = mod.heads, mod.dim_head
+
+    def keep_v(_, __, qkv):
+        v = qkv[..., 2 * h * dh:]
+        kept["v"] = v.detach().reshape(v.shape[0], -1, h, dh).transpose(1, 2)
+
+    def keep_out(_, args):
+        args[0].retain_grad()
+        kept["out"] = args[0]
+
+    mod.to_qkv.register_forward_hook(keep_v)
+    mod.to_out[0].register_forward_pre_hook(keep_out)
+    return kept
+
+
+def res_conv_wgrad64(v, g, taps):
+    """dW (heads, 1, taps, 1) in fp64: taps sums of shifted products."""
+    n = v.shape[2]
+    vp = torch.nn.functional.pad(v.double(), (0, 0, taps // 2, taps // 2))
+    g = g.double()
+    return torch.stack([(vp[:, :, j:j + n] * g).sum((0, 2, 3))
+                        for j in range(taps)], -1)[:, None, :, None]
+
+
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("dh", [64, 4])
+@pytest.mark.parametrize("padded", [256, 512])
+def test_res_conv_weight_gradient_against_fp64(padded, dh, b):
+    """``NystromSelfAttention`` (8 heads, 256 landmarks) over a token count
+    that front-pads to ``padded``, fp32: ``res_conv.weight.grad`` against
+    the fp64 sum of the same operands."""
+    rs = np.random.RandomState(padded + dh + b)
+    n_tok = padded - 56
+    x = rs.randn(b, n_tok, 8 * dh).astype(np.float32)
+    r = rs.randn(b, n_tok, 8 * dh).astype(np.float32)
+    mod = ttm.NystromSelfAttention(dim=8 * dh, heads=8, dim_head=dh,
+                                   num_landmarks=256).eval()
+    with torch.no_grad():
+        for p in mod.parameters():
+            p.copy_(t(rs.randn(*p.shape).astype(np.float32) * 0.1))
+    kept = res_conv_operands(mod)
+    out, _ = mod(t(x))
+    (out * t(r)).sum().backward()
+    g = kept["out"].grad.reshape(b, padded, 8, dh).transpose(1, 2)
+    assert kept["v"].shape == g.shape == (b, 8, padded, dh)
+    want = res_conv_wgrad64(kept["v"], g, 33)
+    err = float((mod.res_conv.weight.grad.double() - want).abs().max())
+    assert err <= RES_CONV_TOL * float(want.abs().max()), \
+        (err, float(want.abs().max()))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_transmil_gradients_match_jax(masked):
+    """D = 512, 70 tokens (a 9 x 9 square, the cls token, front padding to
+    256 landmarks), eval mode: every parameter's gradient of Σ out · r
+    against ``jax.grad`` of the JAX ``TransMIL`` on the same numpy inputs,
+    the weights carried across by the ``from_flax`` mapping, which maps
+    the gradient tree the same way."""
+    rs = np.random.RandomState(6)
+    x = rs.randn(2, 70, 32).astype(np.float32)
+    r = rs.randn(2, 512).astype(np.float32)
+    mask = ragged_mask(rs, 2, 70, low=30) if masked else None
+    jmask = None if mask is None else jnp.asarray(mask)
+    jmod = jtm.TransMIL(L=32, D=512)
+    variables = numpy_variables(jmod, jnp.asarray(x), jmask, scale=0.05)
+
+    def loss(params):
+        out, _ = jmod.apply({"params": params}, jnp.asarray(x), jmask)
+        return jnp.sum(out * jnp.asarray(r))
+
+    grads = jax.jit(jax.grad(loss))(variables["params"])
+    want = transmil(to_numpy_tree(grads), "")
+    mod = load(ttm.TransMIL(L=32, D=512),
+               transmil(to_numpy_tree(variables)["params"], ""))
+    out, _ = mod(t(x), None if mask is None else t(mask))
+    (out * t(r)).sum().backward()
+    got = dict(mod.named_parameters())
+    assert set(got) == set(want)
+    for name in sorted(want):
+        np.testing.assert_allclose(n(got[name].grad), n(want[name]),
+                                   rtol=RTOL, atol=ATOL, err_msg=name)
+
+
 def test_from_flax_transmil_needs_exactly_its_leaves():
     rs = np.random.RandomState(5)
     x = jnp.asarray(rs.randn(1, 4, 8).astype(np.float32))
