@@ -14,7 +14,8 @@ once.  The weights are random, made from a seed.  Phases:
 
   device    card name and power limit (nvidia-smi), torch and CUDA versions
   build     nvcc over llmmil_tpu_torch/csrc (all sources at once), seconds;
-            HGMMA and no HMMA in conv3x3's SASS (its bf16 kernel on wgmma)
+            HGMMA and no HMMA in the SASS of conv3x3, conv3x3_tout and
+            conv3x3_patch (their bf16 kernels on wgmma)
   kernels   every kernel against its plain version at every shape, with
             times; conv3x3 the same bits twice
   model     build_model → forward, bf16 kernel path against fp32 plain path
@@ -27,9 +28,11 @@ once.  The weights are random, made from a seed.  Phases:
             bits of both, and cuDNN's backward for scale
   kernels-modes  conv3x3's patch and tout kernels (forward and input
             gradient) and the tout weight gradient against their plain
-            versions at the path's shape and three ragged ones, both types;
-            run to run bits of the weight gradient; taps kernels and cuDNN
-            for scale
+            versions at the path's shape and nine ragged ones;
+            run to run bits of each; the tout kernel alone (its yT, before
+            the wrapper's transpose back to NHWC) and that transpose alone
+            beside its time through the wrapper; taps kernels and cuDNN for
+            scale
   train     fit() on the synthetic full-width cohort (one 160 x 512 x 512
             volume and one 8192-bucket bag a patient, batch 2), one epoch
             and its validation; launches a step; a mid-epoch checkpoint
@@ -83,6 +86,7 @@ from llmmil_tpu_torch.ops.kernels import (build, conv3x3, conv3x3_dgrad,
                                           conv3x3_wgrad_tout,
                                           conv3x3_wgrad_tout_plain, mil_pool,
                                           mil_pool_plain)
+from llmmil_tpu_torch.ops.kernels.conv3x3 import _nhwc, _tout_yt
 from llmmil_tpu_torch.parallel import ShardedEpochSampler, place_batch
 from llmmil_tpu_torch.train import checkpoint as ckpt
 from llmmil_tpu_torch.train import create_train_state, make_train_step
@@ -518,7 +522,9 @@ def conv_bwd_phase():
 # conv3x3's patch and tout kernels, forward and input gradient, and the tout
 # weight gradient, against their plain versions: at MC3 layer1's shape (the
 # forward at (160,128,128,192)->64, the input gradient at (160,128,128,64)
-# ->192) and at three ragged shapes in both types; the taps kernels and
+# ->192) and at ragged shapes, three in both types and three more in bf16
+# whose strides TMA takes (ragged tiles and chunks, two 192-channel tiles of
+# patch's input-gradient shape); the taps kernels and
 # cuDNN beside them for scale.  Tolerances as for the taps kernels, for the
 # same reasons: CONV_TOL for the forward and the input gradient (the same
 # rounded inputs, exact products, fp32 sums in another order), WGRAD_TOL of
@@ -531,6 +537,9 @@ MODE_SHAPES = [             # (N, H, W, C, F, dtype)
     (3, 17, 13, 24, 40, torch.float32),
     (2, 10, 16, 8, 4, torch.bfloat16),
     (2, 10, 16, 8, 4, torch.float32),
+    (2, 20, 72, 16, 24, torch.bfloat16),        # TMA, ragged tiles
+    (1, 9, 200, 136, 72, torch.bfloat16),       # TMA, ragged chunks
+    (1, 7, 9, 200, 260, torch.bfloat16),        # patch: two 192-ch tiles
 ]
 MODE_PLAIN = {"patch": conv3x3_patch_plain, "tout": conv3x3_tout_plain}
 
@@ -552,7 +561,12 @@ def modes_phase():
         for op, a, k in (("fwd", x, kt), ("dgrad", g, k_rot)):
             for mode, plain in MODE_PLAIN.items():
                 y = conv3x3_fwd(a, k, mode)
+                again = conv3x3_fwd(a, k, mode)
                 torch.cuda.synchronize()
+                same_bits = torch.equal(y, again)
+                check(same_bits, f"conv3x3 {op} {mode}: two runs differ at "
+                      f"{name}")
+                del again
                 ref = plain(a, k)
                 check(y.shape == ref.shape and y.dtype == dtype
                       and y.is_contiguous() and bool(torch.isfinite(y).all()),
@@ -564,9 +578,16 @@ def modes_phase():
                       f"plain version at {name}: {err} > {tol}")
                 del y, ref
                 row[f"{op}_{mode}"] = {
-                    "err": err, "tol": tol,
+                    "err": err, "tol": tol, "same_bits": same_bits,
                     "ms": time_ms(lambda: conv3x3_fwd(a, k, mode), it),
                     "plain_ms": time_ms(lambda: plain(a, k), pit, warmup=1)}
+                if mode == "tout":     # the kernel alone, and the transpose
+                    yt = _tout_yt(a, k)
+                    row[f"{op}_{mode}"]["kernel_ms"] = time_ms(
+                        lambda: _tout_yt(a, k), it)
+                    row[f"{op}_{mode}"]["transpose_ms"] = time_ms(
+                        lambda: _nhwc(yt, a), it)
+                    del yt
             row[f"{op}_taps_ms"] = time_ms(lambda: conv3x3_fwd(a, k), it)
             row[f"{op}_library_ms"] = time_ms(
                 (lambda: conv2d_library(x, kt)) if op == "fwd" else
@@ -610,8 +631,12 @@ def print_modes(rows):
         for op in ("fwd", "dgrad"):
             parts.append(" ".join(
                 f"{op} {m} err {r[f'{op}_{m}']['err']:.2e} (tol "
-                f"{r[f'{op}_{m}']['tol']:.2e}) ms {r[f'{op}_{m}']['ms']:.4f} "
-                f"plain_ms {r[f'{op}_{m}']['plain_ms']:.4f}"
+                f"{r[f'{op}_{m}']['tol']:.2e}; same bits twice "
+                f"{r[f'{op}_{m}']['same_bits']}) ms {r[f'{op}_{m}']['ms']:.4f}"
+                + (f" (kernel alone {r[f'{op}_{m}']['kernel_ms']:.4f}, "
+                   f"transpose alone {r[f'{op}_{m}']['transpose_ms']:.4f})"
+                   if m == "tout" else "") +
+                f" plain_ms {r[f'{op}_{m}']['plain_ms']:.4f}"
                 for m in MODE_PLAIN) + f" taps_ms {r[f'{op}_taps_ms']:.4f} "
                 f"cuDNN_ms {r[f'{op}_library_ms']:.4f} bound_ms "
                 f"{r[f'{op}_bound_ms']:.4f} ({r[f'{op}_bound_by']})")
@@ -1537,18 +1562,21 @@ def bench_phase():
 
 # ------------------------------------------------------------------- main --
 
-def sass_line(lib):
-    """conv3x3's bf16 kernel runs on wgmma: its SASS holds HGMMA and no
+WGMMA_LIBRARIES = ("conv3x3", "conv3x3_tout", "conv3x3_patch")
+
+
+def sass_line(name, lib):
+    """The library's bf16 kernels run on wgmma: its SASS holds HGMMA and no
     HMMA (mma.sync), where the toolkit has cuobjdump."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.isfile(cuobjdump):
-        return "conv3x3 SASS: not read (no cuobjdump)"
+        return f"{name} SASS: not read (no cuobjdump)"
     sass = subprocess.run([cuobjdump, "--dump-sass", str(lib)],
                           capture_output=True, text=True, check=True).stdout
     hgmma, hmma = sass.count("HGMMA."), sass.count("HMMA.")
-    check(hgmma > 0 and hmma == 0, f"conv3x3's SASS holds {hgmma} HGMMA and "
+    check(hgmma > 0 and hmma == 0, f"{name}'s SASS holds {hgmma} HGMMA and "
           f"{hmma} HMMA: its bf16 kernel is not on wgmma")
-    return f"conv3x3 SASS: {hgmma} HGMMA, {hmma} HMMA"
+    return f"{name} SASS: {hgmma} HGMMA, {hmma} HMMA"
 
 
 def main():
@@ -1581,7 +1609,9 @@ def main():
     torch.zeros(1, device=DEV)
     print(f"[build] {', '.join(lib.name for lib in libs)} for sm_90a in "
           f"{time.time() - t0:.1f} s", flush=True)
-    print(f"[build] {sass_line(libs[names.index('conv3x3')])}", flush=True)
+    for name in WGMMA_LIBRARIES:
+        print(f"[build] {sass_line(name, libs[names.index(name)])}",
+              flush=True)
 
     shapes = kernels_phase()
     compared = mil_pool.launches
@@ -1757,6 +1787,11 @@ def main():
             "bound_by": path_row["fwd_bound_by"],
             "library_ms": path_row["fwd_library_ms"],   # F.conv2d
             "dgrad_ms": path_row[f"dgrad_{key}"]["ms"],
+            **({"kernel_ms": fwd["kernel_ms"],         # yT, no transpose
+                "dgrad_kernel_ms": path_row["dgrad_tout"]["kernel_ms"],
+                "transpose_ms": fwd["transpose_ms"],   # yT back to NHWC
+                "dgrad_transpose_ms": path_row["dgrad_tout"]["transpose_ms"]}
+               if key == "tout" else {}),
             "dgrad_library_ms": path_row["dgrad_library_ms"],
             "timed_at": path_row["shape"],
             "comparison_launches": modes_compared[name],

@@ -14,55 +14,72 @@
 // transposed product is to put the pixel axis on the matrix unit's 128 output
 // lanes, which 64 output channels would fill only half.  Here it is a GEMM
 // whose M axis is the output channels (64, or 192 as an input gradient) and
-// whose N axis is the pixels:
+// whose N axis is the pixels.
 //
-//   - a block owns BF output channels and BP consecutive pixels of the
-//     flattened N*H*W axis; its K-chunks are the same explicit im2col tiles
-//     as conv3x3_patch.cu's (one tap, KC channels, gathered from x with
-//     cp.async, zeros for the SAME padding and every ragged edge) beside the
-//     matching rows of k, through a ring of stages;
-//   - bf16: 8 warps as 2 (channels) x 4 (pixels), a warp 32 channels x 32
-//     pixels; A = k^T comes from the k tile through ldmatrix.x4.trans, B =
-//     patch^T from the patch tile through ldmatrix.x4 (the tile's rows are
-//     pixels, which is B's column-major layout as it lies), mma.sync
-//     m16n8k16, 32 fp32 accumulators a thread.  fp32: plain FMAs, 4 channels
-//     x 4 pixels a thread (parity only, no TF32);
-//   - the epilogue writes the (BF x BP) output tile into shared memory and
-//     from there along the pixels, 16 bytes a thread, so that a warp's
-//     stores to yt are whole 128-byte rows.
+// bf16: the taps kernel with the operands' roles swapped, on `wgmma`, fed
+// by TMA, warp-specialised: both are conv3x3_sm90.cuh's halo kernel, which
+// stages, a chunk of 16 input channels, the tile's halo of x and the 9 x 16
+// x 64 slab of k through a ring of `mbarrier`-signalled stages filled by a
+// producer warp, on a persistent grid with output-channel tiles fastest (so
+// the input gradient's three channel tiles, F = 192, read the same halo
+// from L2).  This file supplies the products and the epilogue (struct Tout).
+// A block owns 8 rows x 64 columns of output pixels and 64 output channels;
+// each of its two consumer warpgroups owns 4 rows, one m64n64 fp32
+// accumulator a row: 64 channels x 64 pixels of yt.  Each tap is one
+// `wgmma.mma_async m64n64k16` a row and chunk:
+//   - A, k^T of the tap (64 output channels x 16 input channels), is the
+//     tap's 16 x 64 slab of k staged as it lies in k, 128 bytes (64 output
+//     channels) a row, 128-byte swizzled: M-major, `wgmma`'s transpose flag
+//     on A;
+//   - B, patch^T of the tap (16 channels x 64 pixels), is the window of the
+//     staged halo shifted by (dr, dc): pixel-major, 32 bytes (16 channels) a
+//     pixel, 32-byte swizzled, which is K-major, B's own layout.  The 64
+//     pixels of one output row lie in one halo row, 8 of them 256 bytes
+//     (SBO) whatever the shift; the start lies off the swizzle's 256-byte
+//     pattern and the descriptor's base offset stays 0, as in conv3x3.cu.
+//   At a tile's end each warpgroup rounds its rows into boxes of 64 channel
+//   rows of 64 pixels (128 bytes, 128-byte swizzled; a channel's row is
+//   16-byte groups of one output row, so the eight channels a store
+//   instruction writes fall on different banks) and one thread stores each
+//   box with TMA into yt viewed as (F, N, H, W): an output row's 64 pixels
+//   are 64 consecutive columns of yt, and TMA clips the box at W and F.
+//   A tile of 4 x 128 pixels on m64n128k16 (half as many reads of A a
+//   product, but 18 % more halo and a ring of 3 stages) ran 4-5 % slower
+//   on the H100 (PERF.md) and is not kept.
+//   Which loader, by shape: TMA needs 16-byte strides in device memory, so C,
+//   F and W multiples of 8 take TMA loads and stores; other shapes take the
+//   cp.async loader in the producer warp (conv3x3_sm90.cuh), writing the
+//   same swizzled layout, and direct stores.
 //
 // What bounds it: 2*P*9*C*F operations against x read once and yt written
 // once (at (160,128,128,192) -> 64 in bf16: 5.8e11 operations, 0.59 ms at the
 // 989 TFLOP/s peak, against 1.34 GB, 0.40 ms at 3.35 TB/s): operations; the
-// transpose back to NHWC outside moves y twice more.  As in the patch kernel
-// every pixel's channels are gathered nine times from L2 and mma.sync cannot
-// reach the card's full tensor-core rate.
+// transpose back to NHWC outside moves y twice more.  From L2 it reads what
+// the taps kernel reads: each tile's halo and its slab of k once, 2.43 GB a
+// call.
+//
+// fp32: plain FMAs, 4 channels x 4 pixels a thread (parity only, no TF32),
+// over explicit im2col tiles (one tap, KC channels) gathered with cp.async
+// (conv3x3_im2col.cuh) beside the matching rows of k, through a ring of
+// stages.
+//
+// Builds that skip one phase each (the CONV3X3_SKIP_* macros, driven by
+// `eval/probe_conv3x3.py --kernel tout`) split the bf16 kernel's time
+// between the loads of x and of k, the products and the stores.
 //
 // Plain C interface, no allocation, no synchronisation: the caller hands in
 // the output and the stream to launch on.
 
 #include "conv3x3_im2col.cuh"
+#include "conv3x3_sm90.cuh"
 
 namespace {
 
 using im2col::Geo;
+using namespace sm90;
 
 template <typename T>
 struct Tile;
-
-template <>
-struct Tile<__nv_bfloat16> {
-  static constexpr int BF = 64;         // output channels of a block (M)
-  static constexpr int BP = 128;        // pixels of a block (N)
-  static constexpr int KC = 32;         // input channels of a K-chunk
-  static constexpr int THREADS = 256;
-  static constexpr int STAGES = 4;      // 14.5 KB each
-  static constexpr int P_LD = KC + 8;   // patch tile [pixel][k]
-  static constexpr int K_LD = BF + 8;   // k tile [k][channel]
-  static constexpr int O_LD = BP + 8;   // output tile [channel][pixel]
-  static constexpr int PS = BP * P_LD;
-  static constexpr int KS = KC * K_LD;
-};
 
 template <>
 struct Tile<float> {
@@ -79,86 +96,6 @@ struct Tile<float> {
 
 template <typename T>
 struct Acc;
-
-// bf16: warp (wf, wp) of 2 x 4 owns channels 32 wf .. 32 wf + 31 (two m16
-// tiles) and pixels 32 wp .. 32 wp + 31 (four n8 tiles).  In a 16x8 tile a
-// thread holds channels g = lane / 4 and g + 8, pixels 2t and 2t + 1.
-template <>
-struct Acc<__nv_bfloat16> {
-  using G = Tile<__nv_bfloat16>;
-  float c[2][4][4];
-
-  __device__ void init() {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) c[i][n][j] = 0.0f;
-  }
-
-  __device__ void chunk(const __nv_bfloat16* ps, const __nv_bfloat16* ks) {
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int wf = warp & 1, wp = warp >> 1;
-    // A (channels x k) from the k tile [k][channel], read transposed:
-    // matrices (channels 0-7, k 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15)
-    const int a_off = ((lane & 7) + ((lane >> 4) << 3)) * G::K_LD + wf * 32 + ((lane >> 3) & 1) * 8;
-    // B (k x pixels) from the patch tile [pixel][k] as it lies: matrices
-    // (pixels 0-7, k 0-7), (0-7, 8-15), (8-15, 0-7), (8-15, 8-15): two n8
-    // tiles of pixels
-    const int b_off = (wp * 32 + (lane & 7) + ((lane >> 4) << 3)) * G::P_LD + ((lane >> 3) & 1) * 8;
-#pragma unroll
-    for (int kk = 0; kk < G::KC; kk += 16) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) im2col::ldsm_x4_trans(a[i], ks + a_off + kk * G::K_LD + i * 16);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        uint32_t b[4];
-        im2col::ldsm_x4(b, ps + b_off + j * 16 * G::P_LD + kk);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          im2col::mma(c[i][2 * j], a[i], b[0], b[1]);
-          im2col::mma(c[i][2 * j + 1], a[i], b[2], b[3]);
-        }
-      }
-    }
-  }
-
-  // out: the ring, free once every thread has passed the last chunk
-  __device__ void store(__nv_bfloat16* yt, __nv_bfloat16* out, long long p0, int f0,
-                        long long P, int F) const {
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int wf = warp & 1, wp = warp >> 1;
-    const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        __nv_bfloat16* row = out + (wf * 32 + i * 16 + g + half * 8) * G::O_LD;
-#pragma unroll
-        for (int n = 0; n < 4; ++n)
-          *reinterpret_cast<__nv_bfloat162*>(row + wp * 32 + n * 8 + 2 * t) =
-              __floats2bfloat162_rn(c[i][n][half * 2], c[i][n][half * 2 + 1]);
-      }
-    __syncthreads();
-    constexpr int VEC = 8, RV = G::BP / VEC;
-    const bool vec_ok = P % VEC == 0;    // every row of yt starts on 16 bytes
-    for (int idx = threadIdx.x; idx < G::BF * RV; idx += G::THREADS) {
-      const int r = idx / RV, v = idx % RV;
-      const int f = f0 + r;
-      const long long p = p0 + v * VEC;
-      if (f >= F || p >= P) continue;
-      const __nv_bfloat16* src = out + r * G::O_LD + v * VEC;
-      __nv_bfloat16* dst = yt + (size_t)f * P + p;
-      if (vec_ok && p + VEC <= P) {
-        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
-      } else {
-        for (int j = 0; j < VEC && p + j < P; ++j) dst[j] = src[j];
-      }
-    }
-  }
-};
 
 // fp32: plain FMAs.  Thread (tp, tf) of 16 x 16 owns channels 4 tf .. 4 tf +
 // 3 and pixels tp, tp + 16, tp + 32, tp + 48: neighbouring threads store
@@ -210,9 +147,6 @@ template <typename T>
 constexpr size_t smem_bytes() {
   return sizeof(T) * Tile<T>::STAGES * (Tile<T>::PS + Tile<T>::KS);
 }
-static_assert(sizeof(__nv_bfloat16) * Tile<__nv_bfloat16>::BF * Tile<__nv_bfloat16>::O_LD <=
-                  smem_bytes<__nv_bfloat16>(),
-              "the output tile fits in the ring");
 
 // Block b: output-channel tile b % f_tiles, pixels (b / f_tiles) * BP ...
 // The 9 * c_chunks K-chunks pass through a ring of STAGES stages, STAGES - 1
@@ -271,6 +205,121 @@ cudaError_t launch(const void* x, const void* k, void* yt, int N, int H, int W, 
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------------ bf16 --
+
+namespace bf {
+
+using namespace halo;
+
+// The tout kernel on conv3x3_sm90.cuh's halo kernel, the taps kernel's
+// operands swapped: M is the 64 output channels, N a row's 64 pixels.
+struct Tout {
+  // Warpgroup wg's products of one staged chunk: for each tap, its ROWS
+  // output rows, one m64n64k16 each.  A, M-major (transpose flag), 128-byte
+  // swizzle: the tap's 16 rows of k, 8 of them 1024 bytes (SBO), all 64
+  // output channels in a row (LBO unused).  B, K-major, 32-byte swizzle: the
+  // 64 pixels from halo pixel (row + dr, dc) on, 8 of them 256 bytes (SBO),
+  // the whole k16 step in a pixel's 32 bytes.
+  static __device__ __forceinline__ void products(float (&acc)[ROWS][32], const bf16* xs,
+                                                  int wg) {
+    const uint32_t x0 = smem_u32(xs), k0 = smem_u32(xs + XS);
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int dr = tap / 3, dc = tap % 3;
+      const uint64_t a = smem_desc(k0 + tap * KC * FT * 2, 16, 1024, 1);
+#pragma unroll
+      for (int i = 0; i < ROWS; ++i)
+        wgmma<1, 0>(acc[i], a,
+                    smem_desc(x0 + ((wg * ROWS + i + dr) * HC + dc) * KC * 2, 16, 256, 3));
+    }
+  }
+
+  // Warp q of a warpgroup holds output channels 16 q + lane / 4 and + 8 of
+  // each of its rows, pixels 8 j + 2 (lane % 4) and + 1 of each group j of 8.
+
+  // The warpgroup's rows rounded to bf16 into its output tile in shared
+  // memory: box i holds row i, one 128-byte row of 64 pixels a channel
+  // whose 16-byte groups are swizzled as TMA reads them (group j of row f at
+  // j ^ (f % 8): the eight channels a store instruction writes fall on
+  // different banks).
+  static __device__ __forceinline__ void stage_out(const float (&acc)[ROWS][32], bf16* out) {
+    const int q = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    char* base = reinterpret_cast<char*>(out);
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int f = q * 16 + g + half * 8;   // f % 8 == g
+        char* row = base + (i * FT + f) * 128 + 4 * t;
+#pragma unroll
+        for (int j = 0; j < TW / 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(row + ((j ^ g) << 4)) =
+              __floats2bfloat162_rn(acc[i][4 * j + 2 * half], acc[i][4 * j + 2 * half + 1]);
+      }
+  }
+
+  // The tile, one box of 64 pixels x FT channels a row into yt viewed as
+  // (W, H, N, F): an output row's 64 pixels are 64 consecutive columns of
+  // yt; TMA clips each box at W and F.
+  static __device__ __forceinline__ void store_tma(const CUtensorMap* ymap, const bf16* out,
+                                                   int n, int h1, int w0, int f0, int H) {
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i)
+      if (h1 + i < H) tma_store_4d(ymap, out + i * TW * FT, w0, h1 + i, n, f0);
+  }
+
+  // The warpgroup's rows written to yt directly (the cp.async loader's
+  // shapes), masked at every edge.
+  static __device__ __forceinline__ void store_direct(const float (&acc)[ROWS][32], bf16* yt,
+                                                      int n, int h1, int w0, int f0, int N,
+                                                      int H, int W, int F) {
+    const int q = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const long long P = (long long)N * H * W;
+    bf16* yn = yt + (size_t)n * H * W;     // yt's column of pixel (n, 0, 0)
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) {
+      const int h = h1 + i;
+      if (h >= H) continue;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int f = f0 + q * 16 + g + half * 8;
+        if (f >= F) continue;
+        bf16* row = yn + (size_t)f * P + (size_t)h * W;
+#pragma unroll
+        for (int j = 0; j < TW / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int wd = w0 + j * 8 + 2 * t + e;
+            if (wd < W) row[wd] = __float2bfloat16(acc[i][4 * j + 2 * half + e]);
+          }
+      }
+    }
+  }
+
+  // C, F and W multiples of 8: yt's rows, W pixels of an image row apart,
+  // need 16-byte strides too.
+  static bool takes_tma(int C, int F, int W) { return C % 8 == 0 && F % 8 == 0 && W % 8 == 0; }
+
+  // yt viewed as (W, H, N, F) in boxes of 64 pixels x 1 x 1 x FT, 128-byte
+  // swizzled.
+  static cudaError_t encode_y(CUtensorMap* map, void* yt, int N, int H, int W, int F) {
+    const cuuint64_t e = sizeof(bf16);
+    const cuuint64_t yd[4] = {(cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)N, (cuuint64_t)F};
+    const cuuint64_t ys[3] = {W * e, (cuuint64_t)H * W * e, (cuuint64_t)N * H * W * e};
+    const cuuint32_t yb[4] = {TW, 1, 1, FT};
+    return encode(map, yt, 4, yd, ys, yb, CU_TENSOR_MAP_SWIZZLE_128B);
+  }
+};
+
+cudaError_t launch(const void* x, const void* k, void* yt, int N, int H, int W, int C, int F,
+                   cudaStream_t stream) {
+  return halo::launch<Tout>(x, k, yt, N, H, W, C, F, stream);
+}
+
+}  // namespace bf
+
 }  // namespace
 
 // x: (N, H, W, C) of dtype (0 = float32, 1 = bfloat16), contiguous; k:
@@ -282,6 +331,6 @@ extern "C" int conv3x3_tout_fwd(const void* x, const void* k, void* yt, int N, i
   if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || F <= 0) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)launch<float>(x, k, yt, N, H, W, C, F, s);
-  if (dtype == 1) return (int)launch<__nv_bfloat16>(x, k, yt, N, H, W, C, F, s);
+  if (dtype == 1) return (int)bf::launch(x, k, yt, N, H, W, C, F, s);
   return -1;
 }

@@ -54,11 +54,14 @@ from ..ops.kernels import (WGRAD_MODES, conv3x3, conv3x3_dgrad, conv3x3_fwd,
 PEAK = 989e12        # H100 SXM, dense bf16, at its 700 W limit
 # The tile each kernel runs (csrc/*.cu), by type: what a row's label names.
 TILES = {
-    ("taps", torch.bfloat16): "16x16 px x 64 ch, halo chunks of 16 ch",
+    ("taps", torch.bfloat16): "8x64 px x 64 ch, halo chunks of 16 ch, "
+                              "wgmma",
     ("taps", torch.float32): "8x16 px x 32 ch, halo chunks of 16 ch",
-    ("patch", torch.bfloat16): "128 px x 64 ch, im2col K-chunks of 32",
+    ("patch", torch.bfloat16): "256 px x 64 ch (F > 64: 128 px x 192 ch), "
+                               "TMA im2col chunks of 64 ch, wgmma",
     ("patch", torch.float32): "64 px x 64 ch, im2col K-chunks of 16",
-    ("tout", torch.bfloat16): "64 ch x 128 px, im2col K-chunks of 32",
+    ("tout", torch.bfloat16): "64 ch x 8x64 px, halo chunks of 16 ch, "
+                              "wgmma",
     ("tout", torch.float32): "64 ch x 64 px, im2col K-chunks of 16",
     ("wgrad taps", torch.bfloat16): "ranges of <=128 8x16-px tiles, "
                                     "(tap, 32 ch) x 64",

@@ -39,10 +39,14 @@ bf16 peak) against 1.34 GB (0.40 ms at 3.35 TB/s): operations; an fp32 tensor
 runs on the fp32 pipes and operations bound it by far.  What the designs do
 about it is in the sources: the taps forward (bf16) stages a 10 × 66 halo of
 16 channels at a time by TMA and runs the nine taps as shifted windows of
-it through ``wgmma``, one 64-pixel row of output a product; the patch and
-tout kernels gather explicit im2col tiles
-(one tap, a chunk of channels, a run of pixels) into a ring of stages and
-run one GEMM loop over K = 9C; the weight gradients split the 2.6M-pixel
+it through ``wgmma``, one 64-pixel row of output a product; the tout kernel
+(bf16) runs the same stage with the operands' roles swapped, output
+channels as M and pixels as N, and writes yᵀ; the patch kernel (bf16) has
+TMA's im2col mode write explicit im2col tiles (one tap, 64 channels, a run
+of pixels) into a ring of stages and runs one ``wgmma`` loop over K = 9C
+(the Hopper primitives of all three in ``csrc/conv3x3_sm90.cuh``); the
+fp32 patch and tout kernels gather the same tiles with ``cp.async`` into
+plain FMAs; the weight gradients split the 2.6M-pixel
 reduction over the grid, keep each block's partial in registers, and add
 the partials in a second pass in a fixed order (no float atomics, so two
 runs give the same bits).  Nothing is padded or copied in device memory.
@@ -272,8 +276,8 @@ _FWD_ENTRY = {"taps": "conv3x3_fwd", "patch": "conv3x3_patch_fwd",
 def _launch_fwd(x, w, counter, mode="taps"):
     """Check the operands, launch the forward kernel of ``mode`` on the
     current stream; ``counter`` is the wrapper whose launches this counts.
-    The tout kernel writes yᵀ (F, N·H·W), turned back to NHWC here (one
-    copy, part of the mode's cost)."""
+    Returns the kernel's output: y (N, H, W, F), or for ``tout`` yᵀ (F,
+    N·H·W)."""
     name = counter.__name__
     _check_cuda(name, x)
     if w.device != x.device:
@@ -296,8 +300,6 @@ def _launch_fwd(x, w, counter, mode="taps"):
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{err} for x {tuple(x.shape)} -> {f}, {x.dtype}")
     counter.launches += 1
-    if mode == "tout":
-        y = y.view(f, n, h, wd).permute(1, 2, 3, 0).contiguous()
     return y
 
 
@@ -357,6 +359,20 @@ def conv3x3_patch(x, w):
     return conv3x3_patch_plain(x, w)
 
 
+def _tout_yt(x, w):
+    """The tout kernel's own output, yᵀ (F, N·H·W) in x's type, before the
+    transpose back to NHWC (for timing the kernel alone); CUDA tensors only."""
+    _check_shapes(x, w)
+    return _launch_fwd(x, w, conv3x3_tout, "tout")
+
+
+def _nhwc(yt, x):
+    """yᵀ (F, N·H·W) turned back to (N, H, W, F): one copy, as the JAX
+    package transposes outside its kernel; part of the mode's cost."""
+    n, h, wd = x.shape[:3]
+    return yt.view(-1, n, h, wd).permute(1, 2, 3, 0).contiguous()
+
+
 def conv3x3_tout(x, w):
     """The tout mode's forward: x (N, H, W, C), w (3, 3, C, F) → (N, H, W,
     F) in x's type.  A CUDA tensor launches ``csrc/conv3x3_tout.cu`` (which
@@ -364,7 +380,7 @@ def conv3x3_tout(x, w):
     the plain version."""
     _check_shapes(x, w)
     if x.is_cuda:
-        return _launch_fwd(x, w, conv3x3_tout, "tout")
+        return _nhwc(_launch_fwd(x, w, conv3x3_tout, "tout"), x)
     return conv3x3_tout_plain(x, w)
 
 

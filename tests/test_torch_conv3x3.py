@@ -196,11 +196,19 @@ def test_cuda_tensor_never_takes_the_plain_version():
 
 def test_kernel_source_calls_no_library():
     cu = (PORT / "csrc" / "conv3x3.cu").read_text()
+    sm90 = (PORT / "csrc" / "conv3x3_sm90.cuh").read_text()
     for lib in ("cudnn", "cublas", "cutlass", "torch/"):
-        assert lib not in cu.lower(), lib
-    # the bf16 products are Hopper's wgmma, fed by TMA; no mma.sync is left
-    assert "wgmma.mma_async.sync.aligned.m64n64k16" in cu
-    assert "cp.async.bulk.tensor" in cu and "mma.sync.aligned" not in cu
+        assert lib not in cu.lower() and lib not in sm90.lower(), lib
+    # the bf16 products are Hopper's wgmma, fed by TMA, through the shared
+    # header's halo kernel, which the tout kernel instantiates too; no
+    # mma.sync is left
+    assert '#include "conv3x3_sm90.cuh"' in cu and "wgmma<0, 1>(" in cu
+    assert "halo::launch<Taps>(" in cu
+    tout = (PORT / "csrc" / "conv3x3_tout.cu").read_text()
+    assert "halo::launch<Tout>(" in tout and "wgmma<1, 0>(" in tout
+    assert "wgmma.mma_async.sync.aligned.m64n64k16" in sm90
+    assert "cp.async.bulk.tensor" in sm90 and "tma_load_4d(" in sm90
+    assert "mma.sync.aligned" not in cu + sm90
     assert 'extern "C" int conv3x3_fwd' in cu
     from llmmil_tpu_torch.ops.kernels import build
     assert build.library_path("conv3x3").name.startswith("libconv3x3_")
@@ -474,3 +482,58 @@ def test_bench_entry_point_refuses_a_row_block_and_fails_a_bad_mode(capsys):
                                "--reps", "1", "--modes", "taps,nope",
                                "--ops", "fwd"]) == 1
     assert "parity nope: fwd: FAILED ValueError" in capsys.readouterr().out
+
+
+def test_tout_wrapper_turns_the_kernels_yt_back_to_nhwc(monkeypatch):
+    """On the card ``conv3x3_tout`` launches the kernel, which writes yᵀ (F,
+    N·H·W) (``_tout_yt`` returns it as it is), and transposes it back to
+    NHWC.  With the launch faked to write the plain version's yᵀ for a
+    tensor that claims to lie on the card, the wrapper gives the plain
+    version's NHWC output; a yᵀ of distinct values lands element by
+    element where it belongs."""
+    mod = sys.modules["llmmil_tpu_torch.ops.kernels.conv3x3"]
+    x, k = _data(nb=2, h=5, w=7, c=3, f=4, seed=18)
+    xt, kt = t(x), t(k)
+    nb, h, w, f = 2, 5, 7, 4
+    want_yt = (kt.reshape(27, f).t() @ mod.im2col(xt).t())
+    launched = []
+
+    def fake_launch(a, wk, counter, mode="taps"):
+        launched.append((counter.__name__, mode))
+        return want_yt.clone()
+
+    monkeypatch.setattr(mod, "_launch_fwd", fake_launch)
+    on_card = _OnTheCard((nb, h, w, 3))
+    assert torch.equal(mod._tout_yt(on_card, kt), want_yt)
+    y = conv3x3_tout(on_card, kt)
+    assert launched == [("conv3x3_tout", "tout")] * 2
+    assert y.shape == (nb, h, w, f) and y.is_contiguous()
+    _close(y, n(conv3x3_tout_plain(xt, kt)), tol=1e-5)
+    distinct = torch.arange(f * nb * h * w, dtype=torch.float32).reshape(
+        f, nb * h * w)
+    y = mod._nhwc(distinct, on_card)
+    for i, j, m, c in ((0, 0, 0, 0), (1, 4, 6, 3), (1, 2, 3, 1)):
+        assert y[i, j, m, c] == distinct[c, (i * h + j) * w + m]
+
+
+def test_probe_covers_every_fwd_kernel_and_its_phases():
+    """``probe_conv3x3 --kernel`` names each forward kernel's source and C
+    entry point, and each source (with the headers it includes) honours the
+    four CONV3X3_SKIP_* macros that split its time; without a card the probe
+    refuses to run."""
+    from llmmil_tpu_torch.eval import probe_conv3x3
+    assert sorted(probe_conv3x3.KERNELS) == sorted(FWD_MODES)
+    csrc = PORT / "csrc"
+    headers = {h.name: h.read_text() for h in csrc.glob("*.cuh")}
+    for mode, (source, entry) in probe_conv3x3.KERNELS.items():
+        cu = (csrc / f"{source}.cu").read_text()
+        assert f'extern "C" int {entry}(' in cu, mode
+        text = cu + "".join(v for k_, v in headers.items()
+                            if f'#include "{k_}"' in cu)
+        for phase in ("X", "W", "MMA", "STORE"):
+            assert f"CONV3X3_SKIP_{phase}" in text, (mode, phase)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="needs a CUDA card"):
+            probe_conv3x3.main(["--kernel", "tout"])
+    with pytest.raises(SystemExit):
+        probe_conv3x3.main(["--kernel", "nope"])

@@ -239,37 +239,53 @@ MODE_SOURCES = {       # source: (C entry point, the TPU kernel it replaces)
     "conv3x3_patch": ("conv3x3_patch_fwd", "_fwd_patch_kernel"),
     "conv3x3_tout": ("conv3x3_tout_fwd", "_tout_kernel"),
     "conv3x3_wgrad_tout": ("conv3x3_wgrad_tout", "_wgrad_tout_kernel")}
+# the sources whose bf16 products run on Hopper's wgmma (conv3x3_sm90.cuh);
+# the others keep mma.sync (conv3x3_im2col.cuh)
+WGMMA_SOURCES = ("conv3x3_patch", "conv3x3_tout")
 
 
 @pytest.mark.parametrize("name", sorted(MODE_SOURCES))
 def test_mode_kernel_source_calls_no_library_and_no_float_atomics(name):
-    """The patch, tout and tout weight-gradient kernels (and the header they
-    share) are hand-written: no library kernel, no float atomics, the
-    tensor cores through mma.sync, a plain C entry point."""
+    """The patch, tout and tout weight-gradient kernels (and the headers they
+    share) are hand-written: no library kernel, no float atomics, a plain C
+    entry point; the bf16 products of patch and tout through wgmma, fed by
+    TMA, those of the tout weight gradient through mma.sync."""
     cu = (PORT / "csrc" / f"{name}.cu").read_text()
-    shared = (PORT / "csrc" / "conv3x3_im2col.cuh").read_text()
-    for text in (cu, shared):
+    im2col = (PORT / "csrc" / "conv3x3_im2col.cuh").read_text()
+    sm90 = (PORT / "csrc" / "conv3x3_sm90.cuh").read_text()
+    for text in (cu, im2col, sm90):
         for lib in ("cudnn", "cublas", "cutlass", "torch/", "atomicadd"):
             assert lib not in text.lower(), (name, lib)
     entry, replaces = MODE_SOURCES[name]
     assert '#include "conv3x3_im2col.cuh"' in cu
     assert f'extern "C" int {entry}(' in cu and f"`{replaces}`" in cu
-    assert "mma.sync.aligned.m16n8k16" in shared \
-        and "__pipeline_memcpy_async" in shared
+    assert "__pipeline_memcpy_async" in im2col
+    if name in WGMMA_SOURCES:
+        assert '#include "conv3x3_sm90.cuh"' in cu
+        assert "wgmma.mma_async.sync.aligned" in sm90 \
+            and "cp.async.bulk.tensor" in sm90
+        assert "mma.sync" not in cu and "ldsm_x4" not in cu
+    else:
+        assert "mma.sync.aligned.m16n8k16" in im2col
+        assert "conv3x3_sm90.cuh" not in cu
     from llmmil_tpu_torch.ops.kernels import build
     assert build.library_path(name).name.startswith(f"lib{name}_")
 
 
 def test_library_path_follows_the_shared_header(tmp_path, monkeypatch):
-    """A library is rebuilt when the header it includes changes."""
+    """A library is rebuilt when a header it includes changes."""
     from llmmil_tpu_torch.ops.kernels import build
     for src in (PORT / "csrc").iterdir():
         (tmp_path / src.name).write_bytes(src.read_bytes())
     monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
-    before = build.library_path("conv3x3_patch")
-    header = tmp_path / "conv3x3_im2col.cuh"
-    header.write_text(header.read_text() + "\n// changed\n")
-    assert build.library_path("conv3x3_patch") != before
+    for name, included in (("conv3x3_patch", "conv3x3_im2col.cuh"),
+                           ("conv3x3_tout", "conv3x3_sm90.cuh"),
+                           ("conv3x3", "conv3x3_sm90.cuh")):
+        assert f'#include "{included}"' in (tmp_path / f"{name}.cu").read_text()
+        before = build.library_path(name)
+        header = tmp_path / included
+        header.write_text(header.read_text() + "\n// changed\n")
+        assert build.library_path(name) != before, (name, included)
 
 
 def test_bench_entry_point_imports_nothing_of_jax():
