@@ -13,9 +13,10 @@ ends the run with a non-zero exit; without a CUDA card it exits non-zero at
 once.  The weights are random, made from a seed.  Phases:
 
   device    card name and power limit (nvidia-smi), torch and CUDA versions
-  build     nvcc over llmmil_tpu_torch/csrc (all sources at once), seconds;
-            HGMMA and no HMMA in the SASS of conv3x3, conv3x3_tout and
-            conv3x3_patch (their bf16 kernels on wgmma)
+  build     nvcc over llmmil_tpu_torch/csrc (all sources at once, -Xptxas
+            -v: registers and spills), seconds; HGMMA and no HMMA in the
+            SASS of conv3x3, conv3x3_tout, conv3x3_patch, conv3x3_wgrad and
+            conv3x3_wgrad_tout (their bf16 kernels on wgmma)
   kernels   every kernel against its plain version at every shape, with
             times; conv3x3 the same bits twice
   model     build_model → forward, bf16 kernel path against fp32 plain path
@@ -23,9 +24,10 @@ once.  The weights are random, made from a seed.  Phases:
   model-ct  the tri-modal and the CT-only flagship on one 160 x 512 x 512
             volume: conv3x3 kernel route against the stock route, same type
   serve-ct  the tri-modal flagship exported and served over HTTP
-  kernels-bwd  conv3x3's input and weight gradients against their plain
-            versions (the weight gradient against an fp64 sum), run to run
-            bits of both, and cuDNN's backward for scale
+  kernels-bwd  conv3x3's input and weight gradients (taps, and tout
+            beside it) against their plain versions (the weight gradients
+            against an fp64 sum), run to run bits of each, and cuDNN's
+            backward for scale, at 160 and 320 slices and ragged shapes
   kernels-modes  conv3x3's patch and tout kernels (forward and input
             gradient) and the tout weight gradient against their plain
             versions at the path's shape and nine ragged ones;
@@ -169,12 +171,15 @@ CONV_SHAPES = [              # (N, H, W, C, F, dtype)
 CONV_HEADLINE = CONV_SHAPES[0]
 # conv3x3's backward: x (N, H, W, C) and g (N, H, W, F).  The input gradient
 # is the forward kernel on g with the rotated kernel (F -> C), held to
-# CONV_TOL.  The weight gradient sums N·H·W products per value (2.6M at the
-# path) in fp32, in another order than any reference; it is held against an
-# fp64 sum of the same (type-rounded) operands.  Each block sums up to ~65k
+# CONV_TOL.  The weight gradients (taps, and tout, the same function in the
+# other orientation) sum N·H·W products per value (2.6M at the path) in
+# fp32, in another order than any reference; each is held against an fp64
+# sum of the same (type-rounded) operands.  Each block sums up to ~33k
 # exact products sequentially and the partials are added in a fixed order,
 # so the fp32 error stays near 2^-24 · sqrt(terms) of the magnitudes summed:
-# <= 1e-4 * max|dw| for both types.
+# <= 1e-4 * max|dw| for both types.  (bf16's wgmma accumulation errs more,
+# linearly in a range's length; the kernel keeps its ranges short enough to
+# stay well inside this: eval/probe_wgrad_ranges.py.)
 BWD_SHAPES = [              # (N, H, W, C, F, dtype)
     (160, 128, 128, 192, 64, torch.bfloat16),   # MC3 layer1, dfold: the path
     (320, 128, 128, 192, 64, torch.bfloat16),   # at fit()'s batch 2: another
@@ -210,8 +215,9 @@ WGRAD_TOL = 1e-4
 #   |dk - dk64| <= r·|dk64| + STEP_WGRAD_TOL·S,   S = Σ|x|·|dy| (fp64)
 # r is the rounding of dk to the kernel's type (0 in fp32; 2^-7, twice
 # bf16's 2^-8, in bf16).  The kernel's fp32 sums are chains of additions:
-# a block's pixel range (<= 16384 pixels: one FMA a pixel in fp32, one
-# m16n8k16 step per 16 pixels in bf16), then the <= ~350 partials.  Their
+# a block's pixel range (<= 16384 pixels, one FMA a pixel, in fp32; <= 32768
+# pixels, one wgmma k16 step per 16 pixels, in bf16), then the <= ~350
+# partials.  Their
 # rounding grows like 2^-24·sqrt(additions) times the magnitudes summed, at
 # most 2^-24·sqrt(16.7k)·S ~ 7.7e-6·S: 2e-5·S leaves a factor 2.6.  cuDNN's
 # order is its own; the same bound is asked of it.
@@ -489,7 +495,20 @@ def conv_bwd_phase():
         w_lib_err = float((lib.double() - ref64).abs().max())
         plain32 = conv3x3_wgrad_plain(x, g)
         w_plain_err = float((plain32.double() - ref64).abs().max())
-        del lib, again, ref64, plain32
+        del lib, again, plain32
+        # the tout weight gradient, the same function: the same reference
+        dwt = conv3x3_wgrad(x, g, "tout")
+        again = conv3x3_wgrad(x, g, "tout")
+        torch.cuda.synchronize()
+        t_same_bits = torch.equal(dwt, again)
+        check(t_same_bits, f"conv3x3_wgrad_tout: two runs differ at {name}")
+        check(dwt.shape == (3, 3, c, f) and dwt.dtype == torch.float32
+              and bool(torch.isfinite(dwt).all()),
+              f"conv3x3_wgrad_tout: wrong or non-finite output at {name}")
+        t_err = float((dwt.double() - ref64).abs().max())
+        check(t_err <= w_tol, f"conv3x3_wgrad_tout disagrees with the fp64 "
+              f"sum at {name}: {t_err} > {w_tol}")
+        del dwt, again, ref64
 
         big = n * h * w * c * f >= 1 << 28
         it, pit = (10, 2) if big else (50, 10)
@@ -500,7 +519,10 @@ def conv_bwd_phase():
                "wgrad_err": w_err, "wgrad_tol": w_tol,
                "wgrad_library_err": w_lib_err,
                "wgrad_plain_fp32_err": w_plain_err,
-               "wgrad_same_bits": same_bits}
+               "wgrad_same_bits": same_bits,
+               "wgrad_tout_err": t_err, "wgrad_tout_same_bits": t_same_bits,
+               "wgrad_tout_ms": time_ms(lambda: conv3x3_wgrad(x, g, "tout"),
+                                        it)}
         for which, run, plain in (
                 ("dgrad", lambda: conv3x3_dgrad(g, kt),
                  lambda: conv3x3_dgrad_plain(g, kt)),
@@ -1562,7 +1584,8 @@ def bench_phase():
 
 # ------------------------------------------------------------------- main --
 
-WGMMA_LIBRARIES = ("conv3x3", "conv3x3_tout", "conv3x3_patch")
+WGMMA_LIBRARIES = ("conv3x3", "conv3x3_tout", "conv3x3_patch",
+                   "conv3x3_wgrad", "conv3x3_wgrad_tout")
 
 
 def sass_line(name, lib):
@@ -1646,7 +1669,9 @@ def main():
               f"{r['wgrad_same_bits']} ms {r['wgrad_ms']:.4f} plain_ms "
               f"{r['wgrad_plain_ms']:.4f} library_ms "
               f"{r['wgrad_library_ms']:.4f} bound_ms "
-              f"{r['wgrad_bound_ms']:.4f} ({r['wgrad_bound_by']})",
+              f"{r['wgrad_bound_ms']:.4f} ({r['wgrad_bound_by']}) | wgrad "
+              f"tout err vs fp64 {r['wgrad_tout_err']:.2e} same bits twice "
+              f"{r['wgrad_tout_same_bits']} ms {r['wgrad_tout_ms']:.4f}",
               flush=True)
     bwd_compared = counts()
     mode_rows = modes_phase()
@@ -1767,7 +1792,8 @@ def main():
             "timed_at": bwd_head["shape"],
             "comparison_launches": bwd_compared[name],
             "shapes": [{k: v for k, v in r.items()
-                        if k == "shape" or k.startswith(which)}
+                        if k == "shape" or (k.startswith(which)
+                                            and not k.startswith("wgrad_tout"))}
                        for r in bwd_rows]})
     path_row = mode_rows[0]
     for name, source, replaces, key in (
@@ -1804,14 +1830,21 @@ def main():
         "source": "llmmil_tpu_torch/csrc/conv3x3_wgrad_tout.cu",
         "replaces": "llmmil_tpu/ops/pallas/conv3x3.py:194",
         "launches": launched["conv3x3_wgrad_tout"],
-        "max_abs_err": max(r["wgrad_tout"]["err"] for r in mode_rows),
+        "max_abs_err": max([r["wgrad_tout"]["err"] for r in mode_rows]
+                           + [r["wgrad_tout_err"] for r in bwd_rows]),
         "ms": wt["ms"], "plain_ms": wt["plain_ms"],
         "bound_ms": wt["bound_ms"], "bound_by": wt["bound_by"],
         "library_ms": wt["library_ms"],                 # conv2d_weight
         "timed_at": path_row["shape"],
         "comparison_launches": modes_compared["conv3x3_wgrad_tout"],
         "shapes": [{"shape": r["shape"], **r["wgrad_tout"]}
-                   for r in mode_rows]})
+                   for r in mode_rows] +
+                  [{"shape": r["shape"], "err": r["wgrad_tout_err"],
+                    "tol": r["wgrad_tol"],
+                    "same_bits": r["wgrad_tout_same_bits"],
+                    "ms": r["wgrad_tout_ms"],
+                    "library_ms": r["wgrad_library_ms"],
+                    "bound_ms": r["wgrad_bound_ms"]} for r in bwd_rows]})
     for k in kernels:
         k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}
     print(f"[done] {time.time() - t_start:.1f} s, main-path launches "

@@ -1,8 +1,7 @@
-// Shared pieces of the im2col kernels of the 3x3 stride-1 SAME convolution of
-// an NHWC tensor (conv3x3_patch.cu, conv3x3_tout.cu, conv3x3_wgrad_tout.cu):
-// the tensor-core instructions and the loaders that stage tiles of the
-// im2col matrix, of the kernel and of an (pixels, channels) tensor in shared
-// memory.
+// Shared pieces of the fp32 im2col kernels of the 3x3 stride-1 SAME
+// convolution of an NHWC tensor (conv3x3_patch.cu, conv3x3_tout.cu,
+// conv3x3_wgrad_tout.cu): the loaders that stage tiles of the im2col matrix,
+// of the kernel and of an (pixels, channels) tensor in shared memory.
 //
 // The im2col matrix of x (N, H, W, C) has one row a pixel (the N*H*W pixels
 // in their NHWC order) and 9*C columns in the kernel's tap-major order,
@@ -23,30 +22,6 @@
 #include <stdint.h>
 
 namespace im2col {
-
-// four 8x8 b16 matrices; lane i names row i%8 of matrix i/8
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-// the same, each matrix read transposed
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-// d (16x8, fp32) += a (16x16, bf16, row-major) * b (16x8, bf16, column-major)
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // The shape of x: H, W, C, and P = N*H*W pixels.
 struct Geo {

@@ -1,11 +1,13 @@
 // Hopper (sm_90a) primitives shared by the bf16 kernels of the 3x3 stride-1
-// SAME convolution (conv3x3.cu, conv3x3_tout.cu, conv3x3_patch.cu): barriers
-// in shared memory, cp.async and TMA copies, the wgmma instructions and their
-// shared-memory descriptors, the cp.async loader of a halo chunk for the
-// shapes TMA does not take, the persistent grid, the tensor-map encoders
-// looked up through the runtime, and the halo kernel (namespace halo) that
-// conv3x3.cu and conv3x3_tout.cu each instantiate with their own products
-// and epilogue.
+// SAME convolution (conv3x3.cu, conv3x3_tout.cu, conv3x3_patch.cu,
+// conv3x3_wgrad.cu, conv3x3_wgrad_tout.cu): barriers in shared memory,
+// cp.async and TMA copies, the wgmma instructions and their shared-memory
+// descriptors, the cp.async loaders for the shapes TMA does not take, the
+// persistent grid, the tensor-map encoders looked up through the runtime,
+// the halo kernel (namespace halo) that conv3x3.cu and conv3x3_tout.cu each
+// instantiate with their own products and epilogue, and the weight-gradient
+// kernel (namespace wgrad) that conv3x3_wgrad.cu and conv3x3_wgrad_tout.cu
+// each instantiate with their own operand roles and epilogue.
 //
 // Every kernel built on these is warp-specialised the same way: one producer
 // warp fills a ring of stages in shared memory and signals `full` barriers;
@@ -562,5 +564,355 @@ cudaError_t launch(const void* x, const void* k, void* y, int N, int H, int W, i
 }
 
 }  // namespace halo
+
+// --- the weight-gradient kernel: dw[dr, dc, c, f] = sum over the pixels of
+// x[h + dr - 1, w + dc - 1, c] * dy[h, w, f], the pixels (the GEMM's K) cut
+// into `splits` contiguous ranges (conv3x3_wgrad.cu's taps, which writes dw
+// as (9C, F), conv3x3_wgrad_tout.cu's tout, which writes dw^T as (F, 9C))
+//
+// A unit of work is one tile of CT = 64 input channels, one of FT = 64
+// output channels and one range of pixel tiles of TH x TW = 4 x 64 pixels;
+// a block is three consumer warpgroups and one producer warp, warpgroup dr
+// owning the taps (dr, 0..2): three 64 x 64 fp32 accumulators (96 registers
+// a thread) that it keeps across the whole range and writes once, to the
+// range's slice of a workspace.  A stage is a tile's halo of x, (TH + 2) x
+// (TW + 2) pixels, and its TH x TW pixels of dy, each 128 bytes (64
+// channels) a pixel, 128-byte swizzled (16-byte group j of pixel p at j ^
+// (p % 8)).  A k16 step is 16 consecutive pixels of one output row; tap
+// (dr, dc)'s window of x starts dr halo rows and dc pixels further on.  Both
+// operands have the pixels as their strided axis, so both are MN-major
+// (`wgmma`'s transpose flags): 8 pixels are 1024 bytes (SBO), all 64
+// channels lie in a pixel's 128 bytes (LBO unused).  A window starts
+// (dr (TW + 2) + dc) x 128 bytes into a 1024-byte swizzle pattern; the card
+// swizzles from the address bits, as TMA wrote them, so the descriptor's
+// base offset stays 0 there too.  The Op says which operand is which and
+// where the partial goes:
+//
+//   Op::product(acc, xd, dd)      acc += the product of one k16 step, from
+//                                 the descriptors of x's window and of dy;
+//   Op::store(acc, part, dr, c0, f0, C, F)
+//                                 the warpgroup's three taps into the
+//                                 range's partial, masked at C and F.
+//
+// The partials are added by `reduce` in the order of the ranges, so two
+// runs give the same bits and no float atomics are needed.
+namespace wgrad {
+
+constexpr int TH = 4, TW = 64;           // pixels of a tile: TH rows of 64
+constexpr int CT = 64;                   // input channels of a unit
+constexpr int FT = 64;                   // output channels of a unit
+constexpr int HR = TH + 2, HC = TW + 2;  // halo rows and columns
+constexpr int THREADS = 416;             // three consumer warpgroups + 1 warp
+constexpr int PRODUCER = 384;            // its first thread
+// One stage, as TMA writes it: the halo, then dy, each on 1024 bytes.
+constexpr uint32_t X_BYTES = sizeof(bf16) * HR * HC * CT;
+constexpr uint32_t D_BYTES = sizeof(bf16) * TH * TW * FT;
+constexpr int XS = (X_BYTES + 1023) / 1024 * 1024 / sizeof(bf16);
+constexpr int STAGE = XS + TH * TW * FT;
+constexpr uint32_t STAGE_BYTES = sizeof(bf16) * STAGE;
+// Two stages of 82 KB: a consumer releases each stage once its products
+// have retired, so that the producer fills it while the other is
+// multiplied.  Tiles of 3 or 2 rows with three or four stages (x read 1.72
+// or 2.06 times) are eval/probe_wgrad_ranges.py's variants (PERF.md).
+constexpr int STAGES = 2;
+constexpr size_t SMEM = 1024 + (size_t)STAGES * STAGE_BYTES + 2 * STAGES * 8;
+// Pixel tiles a range holds at most: 32768 pixels, chains of 2048 k16 steps
+// in an accumulator.  The error of `wgmma`'s fp32 accumulation grows with
+// the chain's length linearly, as a truncating adder's would, not as its
+// square root: ranges twice as long came within a factor 1.5 of
+// chip_smoke.py's WGRAD_TOL at the trunk's shape on an H100, for a few per
+// cent less time (eval/probe_wgrad_ranges.py, PERF.md).
+constexpr long long MAX_RANGE_TILES = 32768 / (TH * TW);
+static_assert(SMEM <= 232448, "the ring exceeds an SM's shared memory");
+static_assert(XS * 2 % 1024 == 0 && STAGE_BYTES % 1024 == 0,
+              "swizzled tiles start on 1024 bytes");
+static_assert(CT * 2 == 128 && FT * 2 == 128, "the swizzle assumes 128-byte pixels");
+
+// The loader for shapes TMA does not take (C or F not a multiple of 8): the
+// producer warp's 32 threads copy the ROWS x COLS pixels from (h0, w0) on
+// of image src (H x W pixels of `channels` channels), channels ch0 .. ch0 +
+// 63 of each, into dst as TMA writes a 128-byte-swizzled box of them.  16
+// bytes a cp.async where they are aligned and inside, element by element
+// (zeros outside the image and past the channels) elsewhere.
+template <int ROWS, int COLS>
+__device__ void load_box_cp_async(bf16* dst, const bf16* src, int h0, int w0, int ch0, int H,
+                                  int W, int channels, int lane) {
+  const bool vec = channels % 8 == 0;    // every pixel starts on 16 bytes
+  for (int i = lane; i < ROWS * COLS * 8; i += 32) {
+    const int v = i % 8, p = i / 8;
+    const int h = h0 + p / COLS, wd = w0 + p % COLS;
+    const int ch = ch0 + v * 8;
+    const bool inside = h >= 0 && h < H && wd >= 0 && wd < W;
+    bf16* d = dst + p * 64 + ((v ^ p) & 7) * 8;
+    if (inside && vec && ch + 8 <= channels) {
+      cp_async16(d, src + ((size_t)h * W + wd) * channels + ch);
+    } else {
+      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+      if (inside) {
+        const bf16* px = src + ((size_t)h * W + wd) * channels;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (ch + j < channels) d[j] = px[ch + j];
+      }
+    }
+  }
+}
+
+// Warpgroup dr's products of one staged tile: for each of its TH x TW / 16
+// k16 steps, one m64n64k16 a tap (dr, dc).  The descriptors of the stage's
+// windows differ from the first ones by constants (a descriptor's low bits
+// are the address / 16).
+template <class Op>
+__device__ __forceinline__ void products(float (&acc)[3][32], const bf16* stage, int dr) {
+  const uint64_t x0 = smem_desc(smem_u32(stage) + dr * HC * CT * 2, 16, 1024, 1);
+  const uint64_t d0 = smem_desc(smem_u32(stage + XS), 16, 1024, 1);
+#pragma unroll
+  for (int i = 0; i < TH; ++i)
+#pragma unroll
+    for (int k = 0; k < TW / 16; ++k) {
+      const uint64_t dd = d0 + (uint64_t)((i * TW + 16 * k) * FT * 2 / 16);
+#pragma unroll
+      for (int dc = 0; dc < 3; ++dc)
+        Op::product(acc[dc], x0 + (uint64_t)((i * HC + dc + 16 * k) * CT * 2 / 16), dd);
+    }
+}
+
+// The shape of a call: pixel tiles and channel tiles.
+struct Plan {
+  int tiles_h, tiles_w, c_tiles, f_tiles;
+  long long pixel_tiles;
+};
+
+inline Plan plan(int N, int H, int W, int C, int F) {
+  Plan p;
+  p.tiles_h = (H + TH - 1) / TH;
+  p.tiles_w = (W + TW - 1) / TW;
+  p.c_tiles = (C + CT - 1) / CT;
+  p.f_tiles = (F + FT - 1) / FT;
+  p.pixel_tiles = (long long)N * p.tiles_h * p.tiles_w;
+  return p;
+}
+
+// Warp-specialised and persistent.  Block b takes units b, b + gridDim.x,
+// ...; unit u is channel tile u % c_tiles (fastest), then the output-channel
+// tile, then the range, so that the blocks of one range run side by side on
+// neighbouring SMs and read its dy from L2.  Pixel tile t of a range is the
+// column tile t % tiles_w (fastest), then the row tile, the image.  The
+// producer walks the tiles of all of the block's units and fills stage g %
+// STAGES with the g-th once the consumers have released that stage's
+// previous tile (`empty`, one arrival a consumer warp), signalling `full`
+// when the bytes have landed (TMA: one thread, transaction bytes; cp.async:
+// 32 arrivals).  x's box starts at (c0, w0 - 1, h0 - 1): its zero fill
+// outside the tensor is the SAME padding; dy's pixels past H or W arrive as
+// zeros, so a ragged tile adds nothing whatever its halo holds.
+template <class Op, bool TMA>
+__global__ void __launch_bounds__(THREADS, 1)
+kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap dmap,
+       const bf16* __restrict__ x, const bf16* __restrict__ dy, float* __restrict__ ws, int H,
+       int W, int C, int F, Plan p, int splits, unsigned int units) {
+  extern __shared__ __align__(1024) unsigned char wgrad_smem[];
+  unsigned char* base = wgrad_smem + ((1024 - smem_u32(wgrad_smem) % 1024) % 1024);
+  bf16* ring = reinterpret_cast<bf16*>(base);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + (size_t)STAGES * STAGE_BYTES);
+  uint64_t* empty = full + STAGES;
+
+  if (blockIdx.x >= units) return;
+  const unsigned int my_units = (units - blockIdx.x + gridDim.x - 1) / gridDim.x;
+  // unit i of this block: its channel tiles and its range of pixel tiles
+  auto unit = [&](unsigned int i, int& c0, int& f0, int& s, long long& first,
+                  long long& count) {
+    unsigned int u = blockIdx.x + i * gridDim.x;
+    c0 = (int)(u % p.c_tiles) * CT;
+    u /= p.c_tiles;
+    f0 = (int)(u % p.f_tiles) * FT;
+    s = (int)(u / p.f_tiles);
+    first = p.pixel_tiles * s / splits;
+    count = p.pixel_tiles * (s + 1) / splits - first;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(&full[st], TMA ? 1 : 32);
+      mbar_init(&empty[st], 12);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= PRODUCER) {           // ------------------ producer --
+    const int lane = threadIdx.x - PRODUCER;
+    if (TMA && lane != 0) return;
+    unsigned int g = 0;
+    for (unsigned int i = 0; i < my_units; ++i) {
+      int c0, f0, s;
+      long long first, count;
+      unit(i, c0, f0, s, first, count);
+      for (long long j = 0; j < count; ++j, ++g) {
+        const int st = g % STAGES;
+        if (g >= STAGES) mbar_wait(&empty[st], (g / STAGES - 1) & 1);
+        long long t = first + j;
+        const int w0 = (int)(t % p.tiles_w) * TW;
+        t /= p.tiles_w;
+        const int h0 = (int)(t % p.tiles_h) * TH;
+        const int n = (int)(t / p.tiles_h);
+        bf16* xs = ring + st * STAGE;
+        bool load_x = true, load_d = true;
+#ifdef CONV3X3_SKIP_X
+        load_x = j == 0;
+#endif
+#ifdef CONV3X3_SKIP_W
+        load_d = j == 0;
+#endif
+        if (TMA) {
+          mbar_expect_tx(&full[st], (load_x ? X_BYTES : 0) + (load_d ? D_BYTES : 0));
+          if (load_x) tma_load_4d(xs, &xmap, &full[st], c0, w0 - 1, h0 - 1, n);
+          if (load_d) tma_load_4d(xs + XS, &dmap, &full[st], f0, w0, h0, n);
+        } else {
+          if (load_x)
+            load_box_cp_async<HR, HC>(xs, x + (size_t)n * H * W * C, h0 - 1, w0 - 1, c0, H, W, C,
+                                      lane);
+          if (load_d)
+            load_box_cp_async<TH, TW>(xs + XS, dy + (size_t)n * H * W * F, h0, w0, f0, H, W, F,
+                                      lane);
+          fence_proxy_async();             // the zeros written by hand
+          mbar_arrive_cp_async(&full[st]);
+        }
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------------------ consumers --
+  const int dr = threadIdx.x >> 7;
+  const bool warp_leader = (threadIdx.x & 31) == 0;
+  float acc[3][32];
+  unsigned int g = 0;
+  for (unsigned int i = 0; i < my_units; ++i) {
+    int c0, f0, s;
+    long long first, count;
+    unit(i, c0, f0, s, first, count);
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+#pragma unroll
+      for (int b = 0; b < 32; ++b) acc[a][b] = 0.0f;
+    fence_acc(acc);
+    for (long long j = 0; j < count; ++j, ++g) {
+      const int st = g % STAGES;
+      mbar_wait(&full[st], (g / STAGES) & 1);
+      if (!TMA) fence_proxy_async();       // cp.async's writes, for wgmma
+#ifndef CONV3X3_SKIP_MMA
+      wgmma_fence();
+      products<Op>(acc, ring + st * STAGE, dr);
+      wgmma_commit();
+      wgmma_wait<0>();
+#endif
+      if (warp_leader) mbar_arrive(&empty[st]);
+    }
+    fence_acc(acc);
+#ifdef CONV3X3_SKIP_STORE
+    if (s >= 0) continue;                  // never stores
+#endif
+    Op::store(acc, ws + (size_t)s * 9 * C * F, dr, c0, f0, C, F);
+  }
+}
+
+// dw[e] = the sum over the splits of ws[s][e], in the order of s: two runs
+// give the same bits.
+__global__ void reduce(const float* __restrict__ ws, float* __restrict__ dw, long long count,
+                       int splits) {
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < count;
+       e += (long long)gridDim.x * blockDim.x) {
+    float sum = 0.0f;
+    for (int s = 0; s < splits; ++s) sum += ws[(size_t)s * count + e];
+    dw[e] = sum;
+  }
+}
+
+inline cudaError_t launch_reduce(const float* ws, float* dw, long long count, int splits,
+                                 cudaStream_t stream) {
+  const long long want = (count + 255) / 256;
+  const unsigned int grid = (unsigned int)(want < 4096 ? want : 4096);
+  reduce<<<grid, 256, 0, stream>>>(ws, dw, count, splits);
+  return cudaGetLastError();
+}
+
+// TMA needs 16-byte strides in device memory: C and F multiples of 8 (every
+// shape of the trunk).  Other shapes take the cp.async loader; neither is a
+// fallback for the other.
+inline bool takes_tma(int C, int F) { return C % 8 == 0 && F % 8 == 0; }
+
+// The kernel a shape takes, its dynamic shared memory set.
+using Kernel = void (*)(CUtensorMap, CUtensorMap, const bf16*, const bf16*, float*, int, int, int,
+                        int, Plan, int, unsigned int);
+
+template <class Op>
+cudaError_t kernel_for(int C, int F, Kernel* kern) {
+  *kern = takes_tma(C, F) ? kernel<Op, true> : kernel<Op, false>;
+  return cudaFuncSetAttribute(*kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+}
+
+// Pixel ranges: whole waves of units (as many as the card runs blocks at
+// once, one block an SM), enough waves that no range holds more than
+// MAX_RANGE_TILES tiles, and no more ranges than there are pixel tiles.
+template <class Op>
+cudaError_t choose_splits(int N, int H, int W, int C, int F, int* splits) {
+  const Plan p = plan(N, H, W, C, F);
+  Kernel kern = nullptr;
+  cudaError_t err = kernel_for<Op>(C, F, &kern);
+  if (err != cudaSuccess) return err;
+  unsigned int resident = 0;
+  err = persistent_grid(kern, THREADS, SMEM, 1LL << 30, &resident);
+  if (err != cudaSuccess) return err;
+  const long long per_range = (long long)p.c_tiles * p.f_tiles;
+  const long long per_wave = ((long long)resident + per_range - 1) / per_range;
+  long long waves = (p.pixel_tiles + MAX_RANGE_TILES * per_wave - 1) / (MAX_RANGE_TILES * per_wave);
+  if (waves < 1) waves = 1;
+  long long s = waves * per_wave;
+  if (s > p.pixel_tiles) s = p.pixel_tiles;
+  if (s < 1) s = 1;
+  if (s * per_range > 2147483647LL) return cudaErrorInvalidConfiguration;
+  *splits = (int)s;
+  return cudaSuccess;
+}
+
+// The partials into ws (splits x 9 x C x F floats, as Op lays them out),
+// then their sum into dw.  The tensor maps are built here for each call: x
+// (C, W, H, N) in boxes of CT x HC x HR pixels and dy (F, W, H, N) in boxes
+// of FT x TW x TH, both 128-byte swizzled.
+template <class Op>
+cudaError_t launch(const void* x, const void* dy, void* ws, void* dw, int N, int H, int W, int C,
+                   int F, int splits, cudaStream_t stream) {
+  const Plan p = plan(N, H, W, C, F);
+  if (splits < 1 || splits > p.pixel_tiles) return cudaErrorInvalidValue;
+  const long long units = (long long)splits * p.c_tiles * p.f_tiles;
+  if (units > 2147483647LL) return cudaErrorInvalidConfiguration;
+  CUtensorMap maps[2];
+  memset(maps, 0, sizeof(maps));
+  cudaError_t err = cudaSuccess;
+  if (takes_tma(C, F)) {
+    const cuuint64_t e = sizeof(bf16);
+    const cuuint64_t xd[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)N};
+    const cuuint64_t xs[3] = {C * e, (cuuint64_t)W * C * e, (cuuint64_t)H * W * C * e};
+    const cuuint32_t xb[4] = {CT, HC, HR, 1};
+    const cuuint64_t dd[4] = {(cuuint64_t)F, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)N};
+    const cuuint64_t ds[3] = {F * e, (cuuint64_t)W * F * e, (cuuint64_t)H * W * F * e};
+    const cuuint32_t db[4] = {FT, TW, TH, 1};
+    if ((err = encode(&maps[0], x, 4, xd, xs, xb, CU_TENSOR_MAP_SWIZZLE_128B)) != cudaSuccess ||
+        (err = encode(&maps[1], dy, 4, dd, ds, db, CU_TENSOR_MAP_SWIZZLE_128B)) != cudaSuccess)
+      return err;
+  }
+  Kernel kern = nullptr;
+  if ((err = kernel_for<Op>(C, F, &kern)) != cudaSuccess) return err;
+  unsigned int grid = 0;
+  if ((err = persistent_grid(kern, THREADS, SMEM, units, &grid)) != cudaSuccess) return err;
+  kern<<<grid, THREADS, SMEM, stream>>>(maps[0], maps[1], static_cast<const bf16*>(x),
+                                         static_cast<const bf16*>(dy), static_cast<float*>(ws),
+                                         H, W, C, F, p, splits, (unsigned int)units);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return launch_reduce(static_cast<const float*>(ws), static_cast<float*>(dw), 9LL * C * F,
+                       splits, stream);
+}
+
+}  // namespace wgrad
 
 }  // namespace sm90

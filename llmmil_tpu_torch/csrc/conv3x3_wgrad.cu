@@ -11,46 +11,54 @@
 // walks its grid in order on one core and adds every row block into one
 // VMEM-resident (9C, F) accumulator.  Here blocks run in parallel and in no
 // order, and the reduction is huge against a tiny output (2.6M pixels per
-// CT volume against a 1728 x 64 result), so:
+// CT volume against a 1728 x 64 result), so the pixel axis (the GEMM's K) is
+// cut into `splits` contiguous ranges, each block keeps its partial in
+// registers across a range, and a second kernel adds the partials of each
+// element in a fixed order: no float atomics, two runs give the same bits.
+// Nothing is padded or copied in device memory: pixels outside the image,
+// channels past C and columns past F are staged as zeros.
 //
-//   - the pixel axis (the GEMM's K) is cut into `splits` contiguous ranges of
-//     at most 128 8 x 16-pixel tiles, whole waves of them (see
-//     choose_splits).  A block owns one range, one chunk of KC = 32 input
-//     channels and FT = 64 output channels, and keeps its 9 x KC x FT partial
-//     in registers: warp w (of 9) owns tap w, i.e. two m16 tiles of channels
-//     by eight n8 tiles of output channels, 64 fp32 accumulators a thread;
-//   - per pixel tile it stages the (8+2) x (16+2) x KC halo patch of x and
-//     the 8 x 16 x FT tile of dy in shared memory, 16 bytes a copy with
-//     cp.async, through a ring of stages.  Pixels outside the image, channels
-//     past C and columns past F are written as zeros: the SAME padding and
-//     every ragged edge are the kernel's, nothing is padded or copied in
-//     device memory.  The nine taps are shifted windows of the one patch, so
-//     no im2col exists anywhere;
-//   - bf16: one tile row of 16 pixels is one k16 step.  The pixel axis is the
-//     contracted one, so A (channels x pixels) is the transpose of the
-//     staged patch and B (pixels x output channels) is dy as staged: both
-//     come through `ldmatrix.x4.trans` and feed `mma.sync m16n8k16` with fp32
-//     accumulation.  dy's fragments serve all 9 taps' warps; a warp loads 2
-//     A and 4 B fragments for 16 mma a step.  fp32: plain FMAs, 8 channels x
-//     8 output channels a thread (parity only, no TF32);
-//   - no float atomics: every block writes its partial to a workspace, and a
-//     second kernel adds the `splits` partials of each element in a fixed
-//     order, so two runs give the same bits.
+// bf16: `wgmma`, fed by TMA, warp-specialised: conv3x3_sm90.cuh's
+// weight-gradient kernel (namespace wgrad), which conv3x3_wgrad_tout.cu
+// shares, with this file's operand roles and epilogue (struct Taps).  A
+// unit of work is 64 input channels, 64 output channels and a range of
+// pixel tiles of 4 x 64 pixels (at most 128 tiles, whole waves of units);
+// per tile the producer warp stages the tile's halo of x (6 x 66 pixels of
+// 64 channels, one TMA box whose zero fill is the SAME padding) and its dy
+// (4 x 64 pixels of 64 output channels), both 128-byte swizzled, and each
+// of three consumer warpgroups (tap row dr) runs, a k16 step of 16 pixels,
+// one `wgmma.mma_async m64n64k16` a tap (dr, dc): A, 64 channels x 16
+// pixels, is the window of the halo shifted by (dr, dc); B, 16 pixels x 64
+// output channels, is dy.  Both have the pixels as their strided axis
+// (MN-major, the transpose flags).  At the range's end each warpgroup
+// writes its three taps' 64 x 64 partials into [split][tap * C + c][f].
+// Shapes whose C or F is not a multiple of 8 take a cp.async loader in the
+// producer warp that writes the same layout.
 //
 // What bounds it: at (160,128,128,192) x (..,64) in bf16 it does 5.8e11
 // operations (0.59 ms at the 989 TFLOP/s peak) against 1.34 GB moved (0.40 ms
-// at 3.35 TB/s): operations.  Still open: `mma.sync` cannot reach the
-// card's full tensor-core rate (`wgmma` can), the halo is read 1.4 times and
-// dy once per channel chunk (from L2, since the blocks of one pixel range are
-// neighbours in the grid).
+// at 3.35 TB/s): operations.  From L2 it reads the halo, 1.55 times x, and
+// dy once a channel tile (three times at C = 192): ~2.6 GB a call.  The
+// three channel tiles of a range are neighbours in the grid, so dy's second
+// and third reads hit L2; TMA multicast of dy across a cluster of them
+// would make them one.
+//
+// fp32: plain FMAs, 8 channels x 8 output channels a thread (parity only, no
+// TF32), over a (8+2) x (16+2) x 32 halo patch and an 8 x 16 x 64 tile of
+// dy staged with cp.async through a ring of stages; warp w (of 9) owns tap
+// w; ranges of at most 128 such tiles.
+//
+// Builds that skip one phase each (the CONV3X3_SKIP_* macros of the shared
+// kernel, driven by `eval/probe_conv3x3.py --kernel wgrad`) split the bf16
+// kernel's time between the loads of x and of dy, the products and the
+// stores of the partials.
 //
 // Plain C interface, no allocation, no synchronisation: the caller hands in
 // the workspace, the output and the stream to launch on.
 
-#include <cuda_bf16.h>
 #include <cuda_pipeline.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "conv3x3_sm90.cuh"
 
 namespace {
 
@@ -59,20 +67,6 @@ namespace {
 // (pixel stride D_LD).
 template <typename T>
 struct Tile;
-
-template <>
-struct Tile<__nv_bfloat16> {
-  static constexpr int TH = 8, TW = 16;   // pixels of a pixel tile; TW = k16
-  static constexpr int KC = 32;           // input channels of a block
-  static constexpr int FT = 64;           // output channels of a block
-  static constexpr int THREADS = 288;     // 9 warps, one a tap
-  static constexpr int STAGES = 3;        // 32 KB each
-  static constexpr int BLOCKS_PER_SM = 2;
-  static constexpr int X_LD = KC + 8;     // +16 bytes: ldmatrix's 8 rows fall
-  static constexpr int D_LD = FT + 8;     // on 32 different banks
-  static constexpr int XS = (TH + 2) * (TW + 2) * X_LD;
-  static constexpr int DS = TH * TW * D_LD;
-};
 
 template <>
 struct Tile<float> {
@@ -145,92 +139,6 @@ __device__ __forceinline__ void load_tile(T* xs, const T* xn, const T* dyn, int 
 // writes the partial into the workspace ([tap][c][f], fp32).
 template <typename T>
 struct Acc;
-
-// bf16: warp w owns tap (w / 3, w % 3), channels c0 .. c0 + 31 (two m16
-// tiles) and output channels f0 .. f0 + 63 (eight n8 tiles).  In a 16x8 tile
-// a thread holds channels g = lane / 4 and g + 8, output channels 2t and
-// 2t + 1 (t = lane % 4).
-template <>
-struct Acc<__nv_bfloat16> {
-  using G = Tile<__nv_bfloat16>;
-  float c[2][8][4];
-
-  __device__ void init() {
-#pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) c[m][n][j] = 0.0f;
-  }
-
-  // four 8x8 b16 matrices loaded transposed; lane i names row i%8 of
-  // matrix i/8 as it lies in shared memory
-  static __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-    const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-  }
-  static __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-
-  __device__ void tile(const __nv_bfloat16* xs, const __nv_bfloat16* ds) {
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int dr = warp / 3, dc = warp % 3;
-    // A (16 channels x 16 pixels) lies pixel-major: matrices (pixels 0-7,
-    // channels 0-7), (pixels 0-7, channels 8-15), (pixels 8-15, channels
-    // 0-7), (pixels 8-15, channels 8-15), each read transposed
-    const int a_px = (lane & 7) + ((lane >> 4) << 3);
-    const int a_ch = ((lane >> 3) & 1) * 8;
-    // B (16 pixels x output channels), row-major, read transposed: matrices
-    // (pixels 0-7, n 0-7), (pixels 8-15, n 0-7), (pixels 0-7, n 8-15),
-    // (pixels 8-15, n 8-15): two 16x8 tiles
-    const int b_px = (lane & 7) + ((lane >> 3) & 1) * 8;
-    const int b_n = (lane >> 4) * 8;
-#pragma unroll 2
-    for (int i = 0; i < G::TH; ++i) {     // tile row i: one k16 step
-      uint32_t b[4][4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        ldsm_x4_trans(b[j], ds + (i * G::TW + b_px) * G::D_LD + j * 16 + b_n);
-#pragma unroll
-      for (int m = 0; m < 2; ++m) {
-        uint32_t a[4];
-        ldsm_x4_trans(a, xs + ((i + dr) * (G::TW + 2) + dc + a_px) * G::X_LD + m * 16 + a_ch);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          mma(c[m][2 * j], a, b[j][0], b[j][1]);
-          mma(c[m][2 * j + 1], a, b[j][2], b[j][3]);
-        }
-      }
-    }
-  }
-
-  __device__ void store(float* part, int c0, int f0, int C, int F) const {
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int ch = c0 + m * 16 + g + half * 8;
-        if (ch >= C) continue;
-        float* row = part + ((size_t)warp * C + ch) * F;
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          const int f = f0 + n * 8 + 2 * t;
-          if (f < F) row[f] = c[m][n][half * 2];
-          if (f + 1 < F) row[f + 1] = c[m][n][half * 2 + 1];
-        }
-      }
-  }
-};
 
 // fp32: plain FMAs.  Warp w owns tap w; lane (cg, fg) of 4 x 8 owns channels
 // 8 cg .. 8 cg + 7 and output channels 8 fg .. 8 fg + 7.
@@ -344,17 +252,6 @@ conv3x3_wgrad_partial(const T* __restrict__ x, const T* __restrict__ dy,
   acc.store(ws + (size_t)s * 9 * C * F, c0, f0, C, F);
 }
 
-// dw[e] = sum over the splits of ws[s][e], in the order of s: deterministic.
-__global__ void conv3x3_wgrad_reduce(const float* __restrict__ ws, float* __restrict__ dw,
-                                     long long count, int splits) {
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < count;
-       e += (long long)gridDim.x * blockDim.x) {
-    float sum = 0.0f;
-    for (int s = 0; s < splits; ++s) sum += ws[(size_t)s * count + e];
-    dw[e] = sum;
-  }
-}
-
 struct Plan {
   int tiles_h, tiles_w, c_chunks, f_tiles;
   long long pixel_tiles;
@@ -423,13 +320,48 @@ cudaError_t launch(const void* x, const void* dy, void* ws, void* dw, int N, int
       static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<float*>(ws), N, H, W,
       C, F, p.tiles_h, p.tiles_w, p.c_chunks, p.f_tiles, splits);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const long long count = 9LL * C * F;
-  const long long want = (count + 255) / 256;
-  const unsigned int grid = (unsigned int)(want < 4096 ? want : 4096);
-  conv3x3_wgrad_reduce<<<grid, 256, 0, stream>>>(static_cast<const float*>(ws),
-                                                  static_cast<float*>(dw), count, splits);
-  return cudaGetLastError();
+  return sm90::wgrad::launch_reduce(static_cast<const float*>(ws), static_cast<float*>(dw),
+                                    9LL * C * F, splits, stream);
 }
+
+// ------------------------------------------------------------------ bf16 --
+
+namespace bf {
+
+using namespace sm90;
+
+// The taps weight gradient on conv3x3_sm90.cuh's wgrad kernel: M is the 64
+// input channels (x's window), N the 64 output channels (dy).
+struct Taps {
+  static __device__ __forceinline__ void product(float (&acc)[32], uint64_t xd, uint64_t dd) {
+    wgmma<1, 1>(acc, xd, dd);
+  }
+
+  // Warp q of a warpgroup holds channels 16 q + lane / 4 and + 8 of each
+  // tap, output channels 8 j + 2 (lane % 4) and + 1 of each group j of 8;
+  // the tap (dr, dc)'s values go to rows tap * C + c of the partial (9C, F).
+  static __device__ __forceinline__ void store(const float (&acc)[3][32], float* part, int dr,
+                                               int c0, int f0, int C, int F) {
+    const int q = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int dc = 0; dc < 3; ++dc)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int c = c0 + q * 16 + g + half * 8;
+        if (c >= C) continue;
+        float* row = part + ((size_t)(dr * 3 + dc) * C + c) * F;
+#pragma unroll
+        for (int j = 0; j < wgrad::FT / 8; ++j) {
+          const int f = f0 + j * 8 + 2 * t;
+          if (f < F) row[f] = acc[dc][4 * j + 2 * half];
+          if (f + 1 < F) row[f + 1] = acc[dc][4 * j + 2 * half + 1];
+        }
+      }
+  }
+};
+
+}  // namespace bf
 
 }  // namespace
 
@@ -441,7 +373,7 @@ extern "C" int conv3x3_wgrad_splits(int N, int H, int W, int C, int F, int dtype
                                     int* splits) {
   if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || F <= 0) return -1;
   if (dtype == 0) return (int)choose_splits<float>(N, H, W, C, F, splits);
-  if (dtype == 1) return (int)choose_splits<__nv_bfloat16>(N, H, W, C, F, splits);
+  if (dtype == 1) return (int)sm90::wgrad::choose_splits<bf::Taps>(N, H, W, C, F, splits);
   return -1;
 }
 
@@ -456,6 +388,6 @@ extern "C" int conv3x3_wgrad(const void* x, const void* dy, void* ws, void* dw, 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)launch<float>(x, dy, ws, dw, N, H, W, C, F, splits, s);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(x, dy, ws, dw, N, H, W, C, F, splits, s);
+    return (int)sm90::wgrad::launch<bf::Taps>(x, dy, ws, dw, N, H, W, C, F, splits, s);
   return -1;
 }

@@ -13,38 +13,49 @@
 // im2col block in VMEM and adds dy^T . patch into one VMEM-resident (F, 9C)
 // accumulator, so that the 1728 columns fill the matrix unit's output lanes.
 // Here blocks run in parallel and in no order, and the reduction (2.6M pixels
-// per CT volume) is huge against the (64, 1728) result, so:
+// per CT volume) is huge against the (64, 1728) result, so the pixel axis
+// (the GEMM's K) is cut into `splits` contiguous ranges, each block keeps its
+// partial in registers across a range, and a second kernel adds the
+// partials of each element in a fixed order: no float atomics, two runs
+// give the same bits.
 //
-//   - the pixel axis (the GEMM's K) is cut into `splits` contiguous ranges,
-//     whole waves of blocks, none longer than 16384 pixels (see
-//     choose_splits).  A block owns one range, BF output channels (M) and
-//     one im2col column slice (N): one tap and BC channels of it; it keeps
-//     its (BF x BC) partial of dwt in registers;
-//   - per step of BK pixels it stages the (BK x BF) tile of dy and the (BK x
-//     BC) im2col tile of its slice, gathered from x with cp.async, zeros for
-//     the SAME padding and every ragged edge (conv3x3_im2col.cuh), through a
-//     ring of stages;
-//   - bf16: the pixel axis is the contracted one, so A = dy^T and B = the
-//     im2col tile both come through ldmatrix.x4.trans from tiles whose rows
-//     are pixels; 8 warps as 2 (channels) x 4 (columns), a warp 32 x 16,
-//     mma.sync m16n8k16, 16 fp32 accumulators a thread.  fp32: plain FMAs,
-//     4 output channels x 4 columns a thread (parity only, no TF32);
-//   - no float atomics: every block writes its partial into a workspace, and
-//     a second kernel adds the `splits` partials of each element in a fixed
-//     order, so two runs give the same bits.
+// bf16: the taps weight gradient (conv3x3_wgrad.cu) with the operands'
+// roles swapped, on `wgmma`, fed by TMA, warp-specialised: both are
+// conv3x3_sm90.cuh's weight-gradient kernel (namespace wgrad), with this
+// file's operand roles and epilogue (struct Tout).  No im2col tile exists:
+// the nine taps are shifted windows of one staged halo of x (6 x 66 pixels
+// of 64 channels for a tile of 4 x 64 pixels), beside the tile's dy, both
+// TMA boxes, 128-byte swizzled.  Each of three consumer warpgroups (tap
+// row dr) runs, a k16 step of 16 pixels, one `wgmma.mma_async m64n64k16` a
+// tap (dr, dc): A, 64 output channels x 16 pixels, is dy^T; B, 16 pixels x
+// 64 channels, is the halo's window shifted by (dr, dc); both MN-major (the
+// transpose flags).  At the range's end each warpgroup writes its three
+// taps' 64 x 64 partials into [split][f][tap * C + c].  On the card the
+// output's orientation is the only thing that separates this kernel from
+// the taps one; the materialised im2col tiles of the TPU kernel would read x
+// nine times from L2, the halo reads it 1.55 times.  Shapes whose C or F is
+// not a multiple of 8 take a cp.async loader in the producer warp.
 //
 // What bounds it: 2*P*9*C*F operations against x and dy read once and dwt
 // written once (at (160,128,128,192) x (..,64) in bf16: 5.8e11 operations,
 // 0.59 ms at the 989 TFLOP/s peak, against 1.34 GB, 0.40 ms at 3.35 TB/s):
-// operations.  The design reads more than that from L2: each of a range's
-// 9 * C / BC column slices reads the range's dy tile again, and x once a tap;
-// the slices of one range are neighbours in the grid, so those reads hit L2.
-// mma.sync cannot reach the card's full tensor-core rate (wgmma can).
+// operations.  From L2 it reads what conv3x3_wgrad.cu reads, ~2.6 GB a call.
+//
+// fp32: plain FMAs, 4 output channels x 4 columns a thread (parity only, no
+// TF32), over explicit (BK x BC) im2col tiles (one tap, BC channels)
+// gathered with cp.async (conv3x3_im2col.cuh) beside the (BK x BF) tile of
+// dy, through a ring of stages; ranges of at most 16384 pixels.
+//
+// Builds that skip one phase each (the CONV3X3_SKIP_* macros of the shared
+// kernel, driven by `eval/probe_conv3x3.py --kernel wgrad_tout`) split the
+// bf16 kernel's time between the loads of x and of dy, the products and the
+// stores of the partials.
 //
 // Plain C interface, no allocation, no synchronisation: the caller hands in
 // the workspace, the output and the stream to launch on.
 
 #include "conv3x3_im2col.cuh"
+#include "conv3x3_sm90.cuh"
 
 namespace {
 
@@ -52,19 +63,6 @@ using im2col::Geo;
 
 template <typename T>
 struct Tile;
-
-template <>
-struct Tile<__nv_bfloat16> {
-  static constexpr int BF = 64;         // output channels of a block (M)
-  static constexpr int BC = 64;         // channels of the block's tap (N)
-  static constexpr int BK = 64;         // pixels a step (K)
-  static constexpr int THREADS = 256;
-  static constexpr int STAGES = 3;      // 18 KB each
-  static constexpr int D_LD = BF + 8;   // dy tile [pixel][channel]
-  static constexpr int P_LD = BC + 8;   // im2col tile [pixel][column]
-  static constexpr int DS = BK * D_LD;
-  static constexpr int PS = BK * P_LD;
-};
 
 template <>
 struct Tile<float> {
@@ -83,70 +81,6 @@ struct Tile<float> {
 // the partial into the workspace ([split][f][tap * C + c], fp32).
 template <typename T>
 struct Acc;
-
-// bf16: warp (wf, wc) of 2 x 4 owns output channels 32 wf .. 32 wf + 31 (two
-// m16 tiles) and columns 16 wc .. 16 wc + 15 (two n8 tiles).  In a 16x8 tile
-// a thread holds output channels g = lane / 4 and g + 8, columns 2t, 2t + 1.
-template <>
-struct Acc<__nv_bfloat16> {
-  using G = Tile<__nv_bfloat16>;
-  float c[2][2][4];
-
-  __device__ void init() {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int n = 0; n < 2; ++n)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) c[i][n][j] = 0.0f;
-  }
-
-  __device__ void step(const __nv_bfloat16* ds, const __nv_bfloat16* ps) {
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int wf = warp & 1, wc = warp >> 1;
-    // A (output channels x pixels) from the dy tile [pixel][channel], read
-    // transposed: matrices (channels 0-7, pixels 0-7), (8-15, 0-7), (0-7,
-    // 8-15), (8-15, 8-15)
-    const int a_off = ((lane & 7) + ((lane >> 4) << 3)) * G::D_LD + wf * 32 + ((lane >> 3) & 1) * 8;
-    // B (pixels x columns) from the im2col tile [pixel][column], read
-    // transposed: matrices (pixels 0-7, n 0-7), (8-15, 0-7), (0-7, 8-15),
-    // (8-15, 8-15): two n8 tiles
-    const int b_off = ((lane & 7) + ((lane >> 3) & 1) * 8) * G::P_LD + wc * 16 + (lane >> 4) * 8;
-#pragma unroll
-    for (int kk = 0; kk < G::BK; kk += 16) {
-      uint32_t b[4];
-      im2col::ldsm_x4_trans(b, ps + b_off + kk * G::P_LD);
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        uint32_t a[4];
-        im2col::ldsm_x4_trans(a, ds + a_off + kk * G::D_LD + i * 16);
-        im2col::mma(c[i][0], a, b[0], b[1]);
-        im2col::mma(c[i][1], a, b[2], b[3]);
-      }
-    }
-  }
-
-  __device__ void store(float* part, int tap, int c0, int f0, int C, int F) const {
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int wf = warp & 1, wc = warp >> 1;
-    const int g = lane >> 2, t = lane & 3;
-    const size_t cols = 9 * (size_t)C;
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int f = f0 + wf * 32 + i * 16 + g + half * 8;
-        if (f >= F) continue;
-        float* row = part + (size_t)f * cols + (size_t)tap * C;
-#pragma unroll
-        for (int n = 0; n < 2; ++n) {
-          const int ch = c0 + wc * 16 + n * 8 + 2 * t;
-          if (ch < C) row[ch] = c[i][n][half * 2];
-          if (ch + 1 < C) row[ch + 1] = c[i][n][half * 2 + 1];
-        }
-      }
-  }
-};
 
 // fp32: plain FMAs.  Thread (tc, tf) of 16 x 16 owns output channels 4 tf ..
 // 4 tf + 3 and columns 4 tc .. 4 tc + 3.
@@ -255,17 +189,6 @@ conv3x3_wgrad_tout_partial(const T* __restrict__ x, const T* __restrict__ dy,
   acc.store(ws + (size_t)s * F * 9 * g.C, tap, c0, f0, g.C, F);
 }
 
-// dwt[e] = sum over the splits of ws[s][e], in the order of s: deterministic.
-__global__ void conv3x3_wgrad_tout_reduce(const float* __restrict__ ws, float* __restrict__ dwt,
-                                          long long count, int splits) {
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < count;
-       e += (long long)gridDim.x * blockDim.x) {
-    float sum = 0.0f;
-    for (int s = 0; s < splits; ++s) sum += ws[(size_t)s * count + e];
-    dwt[e] = sum;
-  }
-}
-
 // Sets the kernel's dynamic shared memory and returns how many of its
 // blocks the card runs at once.
 template <typename K>
@@ -327,13 +250,49 @@ cudaError_t launch(const void* x, const void* dy, void* ws, void* dwt, int N, in
       static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<float*>(ws), g, F,
       p.c_chunks, p.f_tiles, p.steps, splits);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const long long count = 9LL * C * F;
-  const long long want = (count + 255) / 256;
-  const unsigned int grid = (unsigned int)(want < 4096 ? want : 4096);
-  conv3x3_wgrad_tout_reduce<<<grid, 256, 0, stream>>>(static_cast<const float*>(ws),
-                                                      static_cast<float*>(dwt), count, splits);
-  return cudaGetLastError();
+  return sm90::wgrad::launch_reduce(static_cast<const float*>(ws), static_cast<float*>(dwt),
+                                    9LL * C * F, splits, stream);
 }
+
+// ------------------------------------------------------------------ bf16 --
+
+namespace bf {
+
+using namespace sm90;
+
+// The tout weight gradient on conv3x3_sm90.cuh's wgrad kernel, the taps
+// one's operands swapped: M is the 64 output channels (dy^T), N the 64 input
+// channels (x's window).
+struct Tout {
+  static __device__ __forceinline__ void product(float (&acc)[32], uint64_t xd, uint64_t dd) {
+    wgmma<1, 1>(acc, dd, xd);
+  }
+
+  // Warp q of a warpgroup holds output channels 16 q + lane / 4 and + 8 of
+  // each tap, channels 8 j + 2 (lane % 4) and + 1 of each group j of 8; the
+  // tap (dr, dc)'s values go to columns tap * C + c of the partial (F, 9C).
+  static __device__ __forceinline__ void store(const float (&acc)[3][32], float* part, int dr,
+                                               int c0, int f0, int C, int F) {
+    const int q = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int dc = 0; dc < 3; ++dc)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int f = f0 + q * 16 + g + half * 8;
+        if (f >= F) continue;
+        float* row = part + (size_t)f * 9 * C + (size_t)(dr * 3 + dc) * C;
+#pragma unroll
+        for (int j = 0; j < wgrad::CT / 8; ++j) {
+          const int c = c0 + j * 8 + 2 * t;
+          if (c < C) row[c] = acc[dc][4 * j + 2 * half];
+          if (c + 1 < C) row[c + 1] = acc[dc][4 * j + 2 * half + 1];
+        }
+      }
+  }
+};
+
+}  // namespace bf
 
 }  // namespace
 
@@ -346,7 +305,7 @@ extern "C" int conv3x3_wgrad_tout_splits(int N, int H, int W, int C, int F, int 
   if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || F <= 0) return -1;
   const long long P = (long long)N * H * W;
   if (dtype == 0) return (int)choose_splits<float>(P, C, F, splits);
-  if (dtype == 1) return (int)choose_splits<__nv_bfloat16>(P, C, F, splits);
+  if (dtype == 1) return (int)sm90::wgrad::choose_splits<bf::Tout>(N, H, W, C, F, splits);
   return -1;
 }
 
@@ -361,6 +320,6 @@ extern "C" int conv3x3_wgrad_tout(const void* x, const void* dy, void* ws, void*
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)launch<float>(x, dy, ws, dwt, N, H, W, C, F, splits, s);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(x, dy, ws, dwt, N, H, W, C, F, splits, s);
+    return (int)sm90::wgrad::launch<bf::Tout>(x, dy, ws, dwt, N, H, W, C, F, splits, s);
   return -1;
 }

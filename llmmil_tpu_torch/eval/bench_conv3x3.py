@@ -63,12 +63,12 @@ TILES = {
     ("tout", torch.bfloat16): "64 ch x 8x64 px, halo chunks of 16 ch, "
                               "wgmma",
     ("tout", torch.float32): "64 ch x 64 px, im2col K-chunks of 16",
-    ("wgrad taps", torch.bfloat16): "ranges of <=128 8x16-px tiles, "
-                                    "(tap, 32 ch) x 64",
+    ("wgrad taps", torch.bfloat16): "ranges of <=128 4x64-px tiles, 64 ch "
+                                    "x 64, halo of 64 ch, wgmma",
     ("wgrad taps", torch.float32): "ranges of <=128 8x16-px tiles, "
                                    "(tap, 32 ch) x 64",
-    ("wgrad tout", torch.bfloat16): "ranges of <=16384 px, 64 x (tap, 64 "
-                                    "ch), steps of 64 px",
+    ("wgrad tout", torch.bfloat16): "ranges of <=128 4x64-px tiles, 64 x 64 "
+                                    "ch, halo of 64 ch, wgmma",
     ("wgrad tout", torch.float32): "ranges of <=16384 px, 64 x (tap, 64 "
                                    "ch), steps of 32 px",
 }

@@ -43,13 +43,15 @@ it through ``wgmma``, one 64-pixel row of output a product; the tout kernel
 (bf16) runs the same stage with the operands' roles swapped, output
 channels as M and pixels as N, and writes yᵀ; the patch kernel (bf16) has
 TMA's im2col mode write explicit im2col tiles (one tap, 64 channels, a run
-of pixels) into a ring of stages and runs one ``wgmma`` loop over K = 9C
-(the Hopper primitives of all three in ``csrc/conv3x3_sm90.cuh``); the
-fp32 patch and tout kernels gather the same tiles with ``cp.async`` into
-plain FMAs; the weight gradients split the 2.6M-pixel
-reduction over the grid, keep each block's partial in registers, and add
-the partials in a second pass in a fixed order (no float atomics, so two
-runs give the same bits).  Nothing is padded or copied in device memory.
+of pixels) into a ring of stages and runs one ``wgmma`` loop over K = 9C;
+the fp32 patch and tout kernels gather the same tiles with ``cp.async``
+into plain FMAs; the weight gradients split the 2.6M-pixel reduction over
+the grid, keep each block's partial in registers, and add the partials in
+a second pass in a fixed order (no float atomics, so two runs give the
+same bits): in bf16 both are one ``wgmma`` kernel over a staged halo of 64
+channels and the tile's dy (taps writes dw, tout dwᵀ; the Hopper
+primitives of all five in ``csrc/conv3x3_sm90.cuh``).  Nothing is padded
+or copied in device memory.
 
 Numerics, as the TPU kernels: the forward casts k to x's type, multiplies in
 that type and accumulates in fp32, y in x's type; the backward casts g to

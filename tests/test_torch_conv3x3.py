@@ -315,12 +315,21 @@ def test_backward_takes_only_the_gradients_asked_for(monkeypatch):
 
 
 def test_wgrad_source_has_no_float_atomics():
+    """The taps weight gradient is hand-written: no library kernel; its bf16
+    products are Hopper's wgmma fed by TMA, through the shared header's
+    weight-gradient kernel (which the tout weight gradient instantiates
+    too), no mma.sync left; no float atomics (the partials are added in a
+    fixed order); both C entry points."""
     cu = (PORT / "csrc" / "conv3x3_wgrad.cu").read_text()
+    sm90 = (PORT / "csrc" / "conv3x3_sm90.cuh").read_text()
     for lib in ("cudnn", "cublas", "cutlass", "torch/"):
-        assert lib not in cu.lower(), lib
-    assert "atomicAdd" not in cu
-    assert "ldmatrix.sync.aligned.m8n8.x4.trans" in cu \
-        and "mma.sync.aligned.m16n8k16" in cu
+        assert lib not in cu.lower() and lib not in sm90.lower(), lib
+    assert "atomicAdd" not in cu + sm90
+    assert '#include "conv3x3_sm90.cuh"' in cu
+    assert "wgrad::launch<bf::Taps>(" in cu and "wgmma<1, 1>(" in cu
+    assert "wgmma.mma_async.sync.aligned" in sm90
+    assert "cp.async.bulk.tensor" in sm90 and "tma_load_4d(" in sm90
+    assert "mma.sync" not in cu and "ldmatrix" not in cu
     assert 'extern "C" int conv3x3_wgrad(' in cu \
         and 'extern "C" int conv3x3_wgrad_splits(' in cu
     from llmmil_tpu_torch.ops.kernels import build
@@ -517,17 +526,21 @@ def test_tout_wrapper_turns_the_kernels_yt_back_to_nhwc(monkeypatch):
 
 
 def test_probe_covers_every_fwd_kernel_and_its_phases():
-    """``probe_conv3x3 --kernel`` names each forward kernel's source and C
-    entry point, and each source (with the headers it includes) honours the
-    four CONV3X3_SKIP_* macros that split its time; without a card the probe
-    refuses to run."""
+    """``probe_conv3x3 --kernel`` names each forward kernel's and each
+    weight gradient's source and C entry point (a weight gradient's planning
+    entry beside it), and each source (with the headers it includes) honours
+    the four CONV3X3_SKIP_* macros that split its time; without a card the
+    probe refuses to run."""
     from llmmil_tpu_torch.eval import probe_conv3x3
-    assert sorted(probe_conv3x3.KERNELS) == sorted(FWD_MODES)
+    assert sorted(probe_conv3x3.KERNELS) == sorted(
+        FWD_MODES + ("wgrad", "wgrad_tout"))
     csrc = PORT / "csrc"
     headers = {h.name: h.read_text() for h in csrc.glob("*.cuh")}
     for mode, (source, entry) in probe_conv3x3.KERNELS.items():
         cu = (csrc / f"{source}.cu").read_text()
         assert f'extern "C" int {entry}(' in cu, mode
+        if mode.startswith("wgrad"):
+            assert f'extern "C" int {entry}_splits(' in cu, mode
         text = cu + "".join(v for k_, v in headers.items()
                             if f'#include "{k_}"' in cu)
         for phase in ("X", "W", "MMA", "STORE"):
@@ -537,3 +550,23 @@ def test_probe_covers_every_fwd_kernel_and_its_phases():
             probe_conv3x3.main(["--kernel", "tout"])
     with pytest.raises(SystemExit):
         probe_conv3x3.main(["--kernel", "nope"])
+
+
+def test_probe_wgrad_ranges_rewrites_the_shipped_constants():
+    """``probe_wgrad_ranges`` varies the weight-gradient kernel by rewriting
+    three lines of ``conv3x3_sm90.cuh``: each stands there once, each
+    variant replaces all three, and a header without them is refused;
+    without a card the probe refuses to run."""
+    from llmmil_tpu_torch.eval import probe_wgrad_ranges as probe
+    header = (PORT / "csrc" / "conv3x3_sm90.cuh").read_text()
+    assert probe.VARIANTS["shipped"] == (4, 2, 32768)
+    for th, stages, pixels in probe.VARIANTS.values():
+        text = probe.variant_header(header, th, stages, pixels)
+        assert f"constexpr int TH = {th}, TW = 64;" in text
+        assert f"constexpr int STAGES = {stages};" in text
+        assert f"MAX_RANGE_TILES = {pixels} / (TH * TW);" in text
+    with pytest.raises(RuntimeError, match="no longer holds"):
+        probe.variant_header(header.replace(probe.STAGES_LINE, ""), 4, 2, 1)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="needs a CUDA card"):
+            probe.main([])

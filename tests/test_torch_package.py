@@ -240,16 +240,16 @@ MODE_SOURCES = {       # source: (C entry point, the TPU kernel it replaces)
     "conv3x3_tout": ("conv3x3_tout_fwd", "_tout_kernel"),
     "conv3x3_wgrad_tout": ("conv3x3_wgrad_tout", "_wgrad_tout_kernel")}
 # the sources whose bf16 products run on Hopper's wgmma (conv3x3_sm90.cuh);
-# the others keep mma.sync (conv3x3_im2col.cuh)
-WGMMA_SOURCES = ("conv3x3_patch", "conv3x3_tout")
+# conv3x3_im2col.cuh keeps only the fp32 paths' cp.async loaders
+WGMMA_SOURCES = ("conv3x3_patch", "conv3x3_tout", "conv3x3_wgrad_tout")
 
 
 @pytest.mark.parametrize("name", sorted(MODE_SOURCES))
 def test_mode_kernel_source_calls_no_library_and_no_float_atomics(name):
     """The patch, tout and tout weight-gradient kernels (and the headers they
     share) are hand-written: no library kernel, no float atomics, a plain C
-    entry point; the bf16 products of patch and tout through wgmma, fed by
-    TMA, those of the tout weight gradient through mma.sync."""
+    entry point; the bf16 products through wgmma, fed by TMA, no mma.sync
+    left in the source or in the im2col header its fp32 path includes."""
     cu = (PORT / "csrc" / f"{name}.cu").read_text()
     im2col = (PORT / "csrc" / "conv3x3_im2col.cuh").read_text()
     sm90 = (PORT / "csrc" / "conv3x3_sm90.cuh").read_text()
@@ -260,14 +260,12 @@ def test_mode_kernel_source_calls_no_library_and_no_float_atomics(name):
     assert '#include "conv3x3_im2col.cuh"' in cu
     assert f'extern "C" int {entry}(' in cu and f"`{replaces}`" in cu
     assert "__pipeline_memcpy_async" in im2col
-    if name in WGMMA_SOURCES:
-        assert '#include "conv3x3_sm90.cuh"' in cu
-        assert "wgmma.mma_async.sync.aligned" in sm90 \
-            and "cp.async.bulk.tensor" in sm90
-        assert "mma.sync" not in cu and "ldsm_x4" not in cu
-    else:
-        assert "mma.sync.aligned.m16n8k16" in im2col
-        assert "conv3x3_sm90.cuh" not in cu
+    assert name in WGMMA_SOURCES
+    assert '#include "conv3x3_sm90.cuh"' in cu
+    assert "wgmma.mma_async.sync.aligned" in sm90 \
+        and "cp.async.bulk.tensor" in sm90
+    assert "mma.sync" not in cu and "ldsm_x4" not in cu
+    assert "mma.sync" not in im2col and "ldmatrix" not in im2col
     from llmmil_tpu_torch.ops.kernels import build
     assert build.library_path(name).name.startswith(f"lib{name}_")
 
@@ -280,7 +278,9 @@ def test_library_path_follows_the_shared_header(tmp_path, monkeypatch):
     monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
     for name, included in (("conv3x3_patch", "conv3x3_im2col.cuh"),
                            ("conv3x3_tout", "conv3x3_sm90.cuh"),
-                           ("conv3x3", "conv3x3_sm90.cuh")):
+                           ("conv3x3", "conv3x3_sm90.cuh"),
+                           ("conv3x3_wgrad", "conv3x3_sm90.cuh"),
+                           ("conv3x3_wgrad_tout", "conv3x3_sm90.cuh")):
         assert f'#include "{included}"' in (tmp_path / f"{name}.cu").read_text()
         before = build.library_path(name)
         header = tmp_path / included
