@@ -15,10 +15,12 @@ once.  The weights are random, made from a seed.  Phases:
   device    card name and power limit (nvidia-smi), torch and CUDA versions
   build     nvcc over llmmil_tpu_torch/csrc (all sources at once, -Xptxas
             -v: registers and spills), seconds; HGMMA and no HMMA in the
-            SASS of conv3x3, conv3x3_tout, conv3x3_patch, conv3x3_wgrad and
-            conv3x3_wgrad_tout (their bf16 kernels on wgmma)
+            SASS of mil_pool, conv3x3, conv3x3_tout, conv3x3_patch,
+            conv3x3_wgrad and conv3x3_wgrad_tout (their bf16 kernels on
+            wgmma)
   kernels   every kernel against its plain version at every shape, with
-            times; conv3x3 the same bits twice
+            times (mil_pool also on masks with holes and at N = 1, 63, 65,
+            129); bf16 mil_pool and conv3x3 the same bits twice
   model     build_model → forward, bf16 kernel path against fp32 plain path
   serve     export_model → ServingModel → InferenceServer, HTTP requests
   model-ct  the tri-modal and the CT-only flagship on one 160 x 512 x 512
@@ -155,6 +157,17 @@ KERNEL_SHAPES = [            # (B, N, L, dtype); N+1 / N+10: the flagship
     (2, 130, 256, torch.float32),
 ]
 HEADLINE_SHAPE = KERNEL_SHAPES[0]
+# bags whose mask has holes (whole masked tiles between valid rows) and
+# ragged lengths around one 64-row tile: (B, N, L, dtype, holes)
+RAGGED_SHAPES = [
+    (8, 8192, 768, torch.bfloat16, True),
+    (1, 8202, 512, torch.bfloat16, True),
+    (3, 1, 512, torch.bfloat16, False),
+    (3, 63, 512, torch.bfloat16, False),
+    (3, 65, 512, torch.bfloat16, False),
+    (3, 129, 512, torch.bfloat16, False),
+    (2, 700, 256, torch.float32, True),
+]
 CONV_SHAPES = [              # (N, H, W, C, F, dtype)
     (160, 128, 128, 192, 64, torch.bfloat16),   # MC3 layer1, dfold: the path
     (320, 128, 128, 192, 64, torch.bfloat16),   # the same at fit()'s batch 2
@@ -260,11 +273,17 @@ def time_ms(fn, iters, warmup=2):
 
 # ---------------------------------------------------------------- kernels --
 
-def kernel_inputs(b, n, l, dtype, gen):
+def kernel_inputs(b, n, l, dtype, gen, holes=False):
+    """A bag, its mask (a prefix of N/2 to N valid rows; with ``holes``,
+    rows 512 k + 128 .. 512 k + 447 masked too, two whole 128-row tiles and
+    more) and the gate parameters."""
     dev = DEV
     x = torch.randn(b, n, l, generator=gen, device=dev).to(dtype)
     n_valid = torch.randint(n // 2, n + 1, (b, 1), generator=gen, device=dev)
-    mask = torch.arange(n, device=dev)[None] < n_valid
+    rows = torch.arange(n, device=dev)[None]
+    mask = rows < n_valid
+    if holes:
+        mask &= ~((rows % 512 >= 128) & (rows % 512 < 448))
     scale = 0.05
     params = [torch.randn(l, GATE_D, generator=gen, device=dev) * scale,
               torch.randn(GATE_D, generator=gen, device=dev) * scale,
@@ -317,13 +336,24 @@ def compare_mil_pool(x, mask, params):
 def kernels_phase():
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     shapes = []
-    for b, n, l, dtype in KERNEL_SHAPES:
-        x, mask, params = kernel_inputs(b, n, l, dtype, gen)
+    for b, n, l, dtype, holes in [(*s, False) for s in KERNEL_SHAPES] + \
+            RAGGED_SHAPES:
+        x, mask, params = kernel_inputs(b, n, l, dtype, gen, holes)
         pooled, attn, rec = compare_mil_pool(x, mask, params)
-        name = f"{b}x{n}x{l} {str(dtype).split('.')[-1]}"
+        name = f"{b}x{n}x{l} {str(dtype).split('.')[-1]}" + \
+            (" holes" if holes else "")
         check(rec["pooled_err"] <= rec["pooled_tol"]
               and rec["attn_err"] <= rec["attn_tol"],
               f"mil_pool disagrees with its plain version at {name}: {rec}")
+        if dtype == torch.bfloat16:
+            # one launch, persistent blocks, joins in a fixed order: the
+            # same inputs give the same bits
+            again = mil_pool(x, mask, *params)
+            check(torch.equal(again[0], pooled) and torch.equal(again[1], attn),
+                  f"mil_pool: two calls gave different bits at {name}")
+            rec["same_bits"] = True
+            rows, blocks = mil_pool.launcher.plan(b, n)
+            rec["plan"] = f"{rows}-row tiles, {blocks} blocks"
 
         # NaN in masked rows must change nothing, bit for bit
         dirty = x.clone()
@@ -1584,7 +1614,7 @@ def bench_phase():
 
 # ------------------------------------------------------------------- main --
 
-WGMMA_LIBRARIES = ("conv3x3", "conv3x3_tout", "conv3x3_patch",
+WGMMA_LIBRARIES = ("mil_pool", "conv3x3", "conv3x3_tout", "conv3x3_patch",
                    "conv3x3_wgrad", "conv3x3_wgrad_tout")
 
 
@@ -1643,7 +1673,9 @@ def main():
               f"{s['pooled_err']:.2e} (tol {s['pooled_tol']:.2e}) attn_err "
               f"{s['attn_err']:.2e} (tol {s['attn_tol']:.2e}) ms {s['ms']:.4f} "
               f"plain_ms {s['plain_ms']:.4f} bound_ms {s['bound_ms']:.4f} "
-              f"({s['bound_by']})", flush=True)
+              f"({s['bound_by']})"
+              + (f"; same bits twice; {s['plan']}" if "plan" in s else ""),
+              flush=True)
     conv_shapes = conv_kernels_phase()
     conv_compared = conv3x3.launches
     for s in conv_shapes:

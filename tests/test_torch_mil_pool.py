@@ -160,3 +160,111 @@ def test_resolve_use_kernel_agrees_with_jax_rule_on_tpu(monkeypatch):
         for raw in (True, False):
             assert resolve_use_kernel(val, raw) \
                 == pk.resolve_use_pallas(val, raw_bag=raw)
+
+
+def _kernel_module():
+    import sys
+    # the package re-exports the function under the submodule's name
+    return sys.modules["llmmil_tpu_torch.ops.kernels.mil_pool"]
+
+
+@pytest.mark.parametrize("l", [64, 512])
+def test_packed_gates_layout_against_cat(l):
+    """The bf16 kernel's B operand: [V | U] K-major, in two halves of 96
+    columns, V's half-h columns then U's same columns."""
+    mod = _kernel_module()
+    rs = np.random.RandomState(3)
+    wv, wu = (t(rs.randn(l, 192).astype(np.float32)) for _ in range(2))
+    got = mod.pack_gates(wv, wu)
+    cat = torch.cat([wv, wu], dim=1).t()               # (384, L)
+    rows = [*range(0, 96), *range(192, 288), *range(96, 192), *range(288, 384)]
+    assert got.dtype == torch.bfloat16 and got.is_contiguous()
+    assert got.shape == (384, l)
+    assert torch.equal(got, cat[rows].to(torch.bfloat16))
+    # V's column j and U's column j sit 96 rows apart in one half
+    for j in (0, 95, 96, 191):
+        h, i = divmod(j, 96)
+        assert torch.equal(got[192 * h + i], wv[:, j].to(torch.bfloat16))
+        assert torch.equal(got[192 * h + 96 + i], wu[:, j].to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gate_operands_reused_then_rebuilt_after_in_place_update(
+        dtype, monkeypatch):
+    """Built once a version of V and U (as the model hands them: transposed
+    views of the Dense weights, a new view each call), rebuilt after an
+    in-place update such as an optimizer step."""
+    mod = _kernel_module()
+    monkeypatch.setattr(mil_pool, "gates", type(mil_pool.gates)())
+    rs = np.random.RandomState(4)
+    weight_v = t(rs.randn(192, 128).astype(np.float32))   # Dense: (D, L)
+    weight_u = t(rs.randn(192, 128).astype(np.float32))
+    first = mod._gate_operands(weight_v.t(), weight_u.t(), dtype)
+    again = mod._gate_operands(weight_v.t(), weight_u.t(), dtype)
+    assert again is first and len(mil_pool.gates) == 1
+    with torch.no_grad():
+        weight_v.add_(1.0)
+    rebuilt = mod._gate_operands(weight_v.t(), weight_u.t(), dtype)
+    assert rebuilt is not first and len(mil_pool.gates) == 1
+    if dtype == torch.bfloat16:
+        assert rebuilt[1] is None
+        assert torch.equal(rebuilt[0],
+                           mod.pack_gates(weight_v.t(), weight_u.t()))
+    else:
+        assert torch.equal(rebuilt[0], weight_v.t())
+        assert torch.equal(rebuilt[1], weight_u.t())
+        assert rebuilt[0].is_contiguous() and rebuilt[1].is_contiguous()
+    # the entry holds V and U, so their memory cannot pass to a new tensor
+    assert mil_pool.gates[next(iter(mil_pool.gates))][1][0] \
+        .data_ptr() == weight_v.data_ptr()
+
+
+def test_gate_cache_keeps_a_bounded_number_of_entries(monkeypatch):
+    mod = _kernel_module()
+    monkeypatch.setattr(mil_pool, "gates", type(mil_pool.gates)())
+    for i in range(mod._GATE_CACHE + 3):
+        w = torch.full((64, 192), float(i))
+        mod._gate_operands(w, w + 1, torch.bfloat16)
+    assert len(mil_pool.gates) == mod._GATE_CACHE
+
+
+@pytest.mark.parametrize("case", ["rank", "dtype", "D", "L", "B", "tiles",
+                                  "mask", "bias"])
+def test_wrapper_checks_raise_before_the_library_loads(case, monkeypatch):
+    """A shape or type the kernel does not take raises before anything is
+    built or loaded (driven with CPU or meta tensors: only the checks run)."""
+    mod = _kernel_module()
+
+    def no_load(*a, **k):
+        raise AssertionError("the library was loaded")
+
+    monkeypatch.setattr(mod, "load_library", no_load)
+    monkeypatch.setattr(mil_pool, "launcher", None)
+    b, n, l, d = 2, 70, 64, 192
+    x = torch.zeros(b, n, l, dtype=torch.bfloat16)
+    mask = torch.ones(b, n, dtype=torch.bool)
+    wv, wu = torch.zeros(l, d), torch.zeros(l, d)
+    bv, bu, ww, bw = (torch.zeros(d), torch.zeros(d), torch.zeros(d, 1),
+                      torch.zeros(1))
+    want = ValueError
+    if case == "rank":
+        x = x[0]
+    elif case == "dtype":
+        x, want = x.to(torch.float16), TypeError
+    elif case == "D":
+        wv = wu = torch.zeros(l, 64)
+    elif case == "L":
+        x = torch.zeros(b, n, 96, dtype=torch.bfloat16)
+    elif case == "B":
+        x = torch.empty(65536, 1, l, dtype=torch.bfloat16, device="meta")
+    elif case == "tiles":
+        x = torch.empty(2, 64 * (mod.BF16_MAX_TILES // 2) + 1, l,
+                        dtype=torch.bfloat16, device="meta")
+    elif case == "mask":
+        mask = mask[:, :-1]
+    elif case == "bias":
+        bv = torch.zeros(d, dtype=torch.float64)
+        want = TypeError
+    with pytest.raises(want, match="mil_pool"):
+        mod._mil_pool_cuda(x, mask, wv, bv, wu, bu, ww, bw)
+    assert mil_pool.launcher is None

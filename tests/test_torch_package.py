@@ -270,13 +270,37 @@ def test_mode_kernel_source_calls_no_library_and_no_float_atomics(name):
     assert build.library_path(name).name.startswith(f"lib{name}_")
 
 
+def test_mil_pool_source_is_hand_written_wgmma_and_tma():
+    """The pooling kernel and the header it includes call no library kernel
+    and add no floats atomically (the only atomic additions count the
+    blocks at the grid barrier, in unsigned ints); its bf16 products run on
+    wgmma fed by TMA, and nothing of the mma.sync design it replaced is
+    left."""
+    cu = (PORT / "csrc" / "mil_pool.cu").read_text()
+    sm90 = (PORT / "csrc" / "conv3x3_sm90.cuh").read_text()
+    for text in (cu, sm90):
+        for lib in ("cudnn", "cublas", "cutlass", "torch/", "#include <torch"):
+            assert lib not in text.lower(), lib
+    calls = re.findall(r"atomicAdd\(([^,]*),", cu)
+    assert calls and all(re.fullmatch(r"bar( \+ 1)?", c.strip())
+                         for c in calls)
+    assert "unsigned int* bar" in cu
+    assert "atomicadd" not in sm90.lower()
+    assert '#include "conv3x3_sm90.cuh"' in cu
+    assert 'extern "C" int mil_pool_fwd(' in cu and "`_mil_kernel`" in cu
+    assert "wgmma_n192<" in cu and "wgmma.mma_async.sync.aligned.m64n192k16" in sm90
+    assert "tma_load_3d(" in cu and "cp.async.bulk.tensor" in sm90
+    assert "mma.sync" not in cu and "ldmatrix" not in cu and "ldsm_" not in cu
+
+
 def test_library_path_follows_the_shared_header(tmp_path, monkeypatch):
     """A library is rebuilt when a header it includes changes."""
     from llmmil_tpu_torch.ops.kernels import build
     for src in (PORT / "csrc").iterdir():
         (tmp_path / src.name).write_bytes(src.read_bytes())
     monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
-    for name, included in (("conv3x3_patch", "conv3x3_im2col.cuh"),
+    for name, included in (("mil_pool", "conv3x3_sm90.cuh"),
+                           ("conv3x3_patch", "conv3x3_im2col.cuh"),
                            ("conv3x3_tout", "conv3x3_sm90.cuh"),
                            ("conv3x3", "conv3x3_sm90.cuh"),
                            ("conv3x3_wgrad", "conv3x3_sm90.cuh"),
